@@ -1,27 +1,35 @@
 // Tiled GEMM with a LayerNorm or row-fold prologue and a bias / GELU /
 // residual epilogue: the matrix-product core of the ln_mlp, attn_ln,
-// swin_block and cva kernels.
+// swin_block, swin_pair, cva and vit3 kernels.
 //
-//   A[m, :] = LN(x[m, :]) rounded to T        (ln_g != null)
+//   A[m, :] = LN(x[a(m), :]) rounded to T     (ln_g != null)
 //           = sum_t x[row(m, t), :]            (a_sum > 1: the CVA ratio fold,
 //             row(m, t) = ((m / a_seg) * a_sum + t) * a_seg + m % a_seg)
-//           = x[m, :]                          (otherwise)
+//           = x[a(m), :]                       (otherwise)
 //   v      = A @ W + bias,  W is (K, N) row-major;  v = gelu_erf(v) if gelu
-//   y[m,n] = T(v)                              (y != null)
-//   out    = T(res + T(v))                     (out != null; res required)
+//   y[c(m), n] = T(v)                          (y != null)
+//   out[c(m), n] = T(res[c(m), n] + T(v))     (out != null; res required)
+//
+// a(m) and c(m) are optional row maps of period L (map_len): a(m) =
+// (m / L) * L + a_map[m % L], and likewise c(m) with c_map; without a map the
+// row is m.  They turn the cyclic shift of a shifted Swin block into a row
+// gather in the qkv GEMM's loads and a row scatter in the projection GEMM's
+// residual loads and stores (swin_pair), so the shift moves no bytes of its
+// own.
 //
 // Replaces the matrix products inside the Pallas kernels
-// mumpy_tpu/ops/pallas/{ln_mlp,attn_ln,swin_block,cva}.py, which keep whole
-// weight sets in VMEM.  On Hopper a block owns one output tile and streams K
-// through shared memory; the LayerNorm statistics of the tile's rows are
-// computed in-block before the K loop, so the normalised activations never go
-// to device memory.  bf16 runs on the tensor cores: 128x128 tiles, wmma
-// 16x16x16 with f32 accumulation, 16-byte loads, the next k-tile prefetched
-// into registers; it takes K and N multiples of 8, 16-byte aligned operands
-// and LayerNorm rows of at most 1024 (every flagship GEMM) and refuses other
-// shapes.  f32 runs a 64x64 SIMT loop with fmaf (no TF32).  Both are bound by
-// issuing the tile loads and their prologue, not by the tensor-core rate
-// (PERF.md, Findings); cp.async / TMA pipelines and wgmma are later work.
+// mumpy_tpu/ops/pallas/{ln_mlp,attn_ln,swin_block,swin_pair,cva,vit3}.py,
+// which keep whole weight sets in VMEM.  On Hopper a block owns one output
+// tile and streams K through shared memory; the LayerNorm statistics of the
+// tile's rows are computed in-block before the K loop, so the normalised
+// activations never go to device memory.  bf16 runs on the tensor cores:
+// 128x128 tiles, wmma 16x16x16 with f32 accumulation, 16-byte loads, the next
+// k-tile prefetched into registers; it takes K and N multiples of 8, 16-byte
+// aligned operands and LayerNorm rows of at most 1024 (every flagship GEMM)
+// and refuses other shapes.  f32 runs a 64x64 SIMT loop with fmaf (no TF32).
+// Both are bound by issuing the tile loads and their prologue, not by the
+// tensor-core rate (PERF.md, Findings); cp.async / TMA pipelines and wgmma are
+// later work.
 #include <mma.h>
 
 #include "common.cuh"
@@ -33,9 +41,15 @@ constexpr int kBM = 64, kBN = 64;
 struct GemmArgs {
   const void* x; const void* w; const void* bias;
   const void* ln_g; const void* ln_b; const void* res;
+  const int* a_map; const int* c_map;
   void* y; void* out;
-  int M, N, K, a_sum, a_seg, gelu;
+  int M, N, K, a_sum, a_seg, gelu, map_len;
 };
+
+// Row m through a row map of period len (no map: m itself).
+__device__ __forceinline__ int map_row(const int* map, int len, int m) {
+  return map == nullptr ? m : (m / len) * len + map[m % len];
+}
 
 // LayerNorm statistics of the tile's rows: two passes (mean, then centred
 // variance), one warp per row.
@@ -46,7 +60,7 @@ __device__ void row_stats(const GemmArgs& p, int m0, int rows, float* s_mu, floa
     const int m = m0 + r;
     float mu = 0.f, rs = 0.f;
     if (m < p.M) {
-      const float* xr = x + (size_t)m * p.K;
+      const float* xr = x + (size_t)map_row(p.a_map, p.map_len, m) * p.K;
       float s = 0.f;
       for (int k = lane; k < p.K; k += 32) s += xr[k];
       mu = warp_sum(s) / p.K;
@@ -72,7 +86,7 @@ __device__ __forceinline__ float a_elem(const GemmArgs& p, int m, int k, int r,
     for (int t = 0; t < p.a_sum; ++t) a += x[(base + (size_t)t * p.a_seg) * p.K + k];
     return a;
   }
-  const float a = x[(size_t)m * p.K + k];
+  const float a = x[(size_t)map_row(p.a_map, p.map_len, m) * p.K + k];
   if (p.ln_g == nullptr) return a;
   return (a - s_mu[r]) * s_rs[r] * static_cast<const float*>(p.ln_g)[k] +
          static_cast<const float*>(p.ln_b)[k];
@@ -86,7 +100,7 @@ __device__ __forceinline__ void epilogue(const GemmArgs& p, int m, int n, float 
   if (m >= p.M || n >= p.N) return;
   if (p.bias != nullptr) v += static_cast<const float*>(p.bias)[n];
   if (p.gelu) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-  const size_t idx = (size_t)m * p.N + n;
+  const size_t idx = (size_t)map_row(p.c_map, p.map_len, m) * p.N + n;
   if (p.y != nullptr) static_cast<float*>(p.y)[idx] = v;
   if (p.out != nullptr)
     static_cast<float*>(p.out)[idx] = static_cast<const float*>(p.res)[idx] + v;
@@ -159,13 +173,14 @@ __device__ void row_stats_vec(const GemmArgs& p, int m0, float* s_mu, float* s_r
     const int m = m0 + r;
     float mu = 0.f, rs = 0.f;
     if (m < p.M) {
+      const int src = map_row(p.a_map, p.map_len, m);
       float v[4][8];
       float s = 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int k = (lane + 32 * i) * 8;
         if (k < p.K) {
-          unpack8(ldg8(x + (size_t)m * p.K + k), v[i]);
+          unpack8(ldg8(x + (size_t)src * p.K + k), v[i]);
 #pragma unroll
           for (int j = 0; j < 8; ++j) s += v[i][j];
         }
@@ -185,8 +200,8 @@ __device__ void row_stats_vec(const GemmArgs& p, int m0, float* s_mu, float* s_r
   }
 }
 
-// 8 consecutive A elements (m, k..k+7) after the prologue.
-__device__ __forceinline__ uint4 a_vec(const GemmArgs& p, int m, int k, int r,
+// 8 consecutive A elements (m, k..k+7) after the prologue; src = a(m).
+__device__ __forceinline__ uint4 a_vec(const GemmArgs& p, int m, int src, int k, int r,
                                        const float* s_mu, const float* s_rs) {
   if (m >= p.M || k >= p.K) return make_uint4(0, 0, 0, 0);
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
@@ -200,7 +215,7 @@ __device__ __forceinline__ uint4 a_vec(const GemmArgs& p, int m, int k, int r,
     }
     return pack8(acc);
   }
-  const uint4 u = ldg8(x + (size_t)m * p.K + k);
+  const uint4 u = ldg8(x + (size_t)src * p.K + k);
   if (p.ln_g == nullptr) return u;
   float f[8], g[8], b[8];
   unpack8(u, f);
@@ -242,8 +257,12 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  uint4 a0 = a_vec(p, m0 + ra, ka, ra, s_mu, s_rs);
-  uint4 a1 = a_vec(p, m0 + ra + 64, ka, ra + 64, s_mu, s_rs);
+  // source rows of this thread's two A rows, read once (the map is periodic,
+  // so rows past M still index it in bounds; a_vec never loads them)
+  const int sa0 = map_row(p.a_map, p.map_len, m0 + ra);
+  const int sa1 = map_row(p.a_map, p.map_len, m0 + ra + 64);
+  uint4 a0 = a_vec(p, m0 + ra, sa0, ka, ra, s_mu, s_rs);
+  uint4 a1 = a_vec(p, m0 + ra + 64, sa1, ka, ra + 64, s_mu, s_rs);
   uint4 b0 = b_vec(p, kb, n0 + nb);
   uint4 b1 = b_vec(p, kb + 16, n0 + nb);
   for (int k0 = 0; k0 < p.K; k0 += kTcBK) {
@@ -254,8 +273,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
     __syncthreads();
     const int k1 = k0 + kTcBK;
     if (k1 < p.K) {  // next k-tile in flight during the MMAs
-      a0 = a_vec(p, m0 + ra, k1 + ka, ra, s_mu, s_rs);
-      a1 = a_vec(p, m0 + ra + 64, k1 + ka, ra + 64, s_mu, s_rs);
+      a0 = a_vec(p, m0 + ra, sa0, k1 + ka, ra, s_mu, s_rs);
+      a1 = a_vec(p, m0 + ra + 64, sa1, k1 + ka, ra + 64, s_mu, s_rs);
       b0 = b_vec(p, k1 + kb, n0 + nb);
       b1 = b_vec(p, k1 + kb + 16, n0 + nb);
     }
@@ -303,7 +322,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
             f[e] = 0.5f * f[e] * (1.f + erff(f[e] * 0.70710678118654752f));
         }
         const uint4 yv = pack8(f);
-        const size_t idx = (size_t)m * p.N + n;
+        const size_t idx = (size_t)map_row(p.c_map, p.map_len, m) * p.N + n;
         if (p.y != nullptr)
           *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.y) + idx) = yv;
         if (p.out != nullptr) {
@@ -323,10 +342,14 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
 
 extern "C" int mumpy_gemm(const void* x, const void* w, const void* bias,
                           const void* ln_g, const void* ln_b, const void* res,
-                          void* y, void* out, int M, int N, int K, int a_sum,
-                          int a_seg, int gelu, int dtype, void* stream) {
+                          const int* a_map, const int* c_map, void* y, void* out,
+                          int M, int N, int K, int a_sum, int a_seg, int gelu,
+                          int map_len, int dtype, void* stream) {
   using namespace mumpy;
-  GemmArgs p{x, w, bias, ln_g, ln_b, res, y, out, M, N, K, a_sum, a_seg, gelu};
+  if ((a_map != nullptr || c_map != nullptr) && (map_len <= 0 || M % map_len || a_sum > 1))
+    return (int)cudaErrorInvalidValue;
+  GemmArgs p{x, w, bias, ln_g, ln_b, res, a_map, c_map, y, out,
+             M, N, K, a_sum, a_seg, gelu, map_len};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
     const bool tc = K % 8 == 0 && N % 8 == 0 && (ln_g == nullptr || K <= kTcMaxLnK) &&

@@ -1,13 +1,19 @@
 """Multilateral temporal-view pyramid encoder, counterpart of
-``mumpy_tpu/models/encoder.py`` (inference, token-major).
+``mumpy_tpu/models/encoder.py`` (inference).
 
 Module names follow the reference state_dict: ``tokenize.project{v}`` /
 ``tokenize.norm{v}``, ``layers.layers.{s}.blocks.{i}.block{v}``,
 ``layers.layers.{s}.downsample.downsample{v}``, ``globalembedding``,
-``globalblocks.blocks.{i}``.  The stages are a plain loop of blocks in the
-reference order (no scan, no pair grouping): at block 0 the cross-view chain
-runs view3 -> view2 -> view1, then each view's plain Swin blocks alternate
-shifted / unshifted, every view shifting by view 1's window.
+``globalblocks.blocks.{i}``.  At block 0 of a stage the cross-view chain
+runs view3 -> view2 -> view1; then each view's plain Swin blocks 1..d-1
+alternate shifted / unshifted, every view shifting by view 1's window.  They
+execute as the JAX package's ``ThreeViewStages`` groups them: (shifted i,
+plain i+1) pairs through the ``swin_pair`` kernel on a window-major carry,
+partitioned once before the pairs and unpartitioned once after, and a lone
+last block through ``swin_block``.  Pairs run only where the window really
+shifts (the clamp to a small grid sets the shift to 0).  The grouping is how
+the blocks execute, not how they are named.  The global ViT runs time-major,
+on a (3, B*49, C) carry, through the ``vit3`` kernel.
 """
 
 from __future__ import annotations
@@ -159,6 +165,9 @@ class ThreeViewStages(nn.Module):
                             window_size=vc.window_size, shift_size=shift if i % 2 else 0,
                             temporal_dim=vc.temporal_dim)
                 groups.append(BlockGroup(blocks))
+            for v in range(1, 4):
+                pair_plain_blocks([getattr(g, f"block{v}") for g in groups[1:]
+                                   if hasattr(g, f"block{v}")])
             down = None
             if s < 3:
                 down = Downsample([PatchMerging(vc.hidden_size[s],
@@ -175,15 +184,41 @@ class ThreeViewStages(nn.Module):
             x[2], out2 = first.block3(x[2])
             x[1], out1 = first.block2(x[1], out2)
             x[0], _ = first.block1(x[0], out1)
-            for group in stage.blocks[1:]:
-                for v in range(3):
-                    blk = getattr(group, f"block{v + 1}", None)
-                    if blk is not None:
-                        x[v] = blk(x[v])
+            for v in range(3):
+                plain = [getattr(g, f"block{v + 1}") for g in stage.blocks[1:]
+                         if hasattr(g, f"block{v + 1}")]
+                x[v] = run_plain_blocks(plain, x[v])
             stage_outputs.append(list(x))
             if hasattr(stage, "downsample"):
                 x = [getattr(stage.downsample, f"downsample{v + 1}")(x[v]) for v in range(3)]
         return x, stage_outputs
+
+
+def pair_plain_blocks(blocks: List[SwinBlock]) -> None:
+    """Group one view's plain blocks 1..d-1 of a stage as the JAX package's
+    ``ThreeViewStages`` does: (shifted i, plain i+1) pairs and, for an odd
+    count, a lone last block.  Pairs form only where the window really shifts
+    (a window clamped to the whole grid does not)."""
+    if blocks and blocks[0].shift > 0:
+        for head in blocks[0:len(blocks) // 2 * 2:2]:
+            head.leads_pair = True
+
+
+def run_plain_blocks(blocks: List[SwinBlock], x: torch.Tensor) -> torch.Tensor:
+    """One view's plain blocks of a stage on image tokens (B, L, C): the pairs
+    on a window-major carry, partitioned once and unpartitioned once, then
+    the lone blocks."""
+    n_pairs = sum(blk.leads_pair for blk in blocks)
+    if n_pairs:
+        head = blocks[0]
+        (gh, gw), win = head.grid(), head.window
+        wins = partition_tokens(x, gh, gw, win, 0)
+        for i in range(n_pairs):
+            wins = blocks[2 * i].pair_forward(blocks[2 * i + 1], wins)
+        x = unpartition_tokens(wins, gh, gw, win, 0)
+    for blk in blocks[2 * n_pairs:]:
+        x = blk(x)
+    return x
 
 
 class GlobalVitBody(nn.Module):
@@ -237,9 +272,11 @@ class MumpyEncoder(nn.Module):
         merged = self.globalembedding(
             merge_views_along_channel_axis(x, cfg.input_token_temporal_dims))
         b, t, n, c = merged.shape
-        # the ViT attends over time for each spatial token: fold tokens into batch
-        g = self.globalblocks(merged.transpose(1, 2).reshape(b * n, t, c))
-        feats = g.reshape(b, n, t * c)  # temporal slices concatenated along channels
+        # the ViT attends over time for each spatial token: time-major slabs
+        # (t, B*n, C), each layer through the n = 3 vit3 kernel
+        g = self.globalblocks(merged.transpose(0, 1).reshape(t, b * n, c))
+        feats = torch.cat(list(g), dim=-1)  # temporal slices concatenated along channels
+        feats = feats.reshape(b, n, t * c)
         side = cfg.views[0].input_resolution[-1][0]
         return feats.reshape(b, side, side, t * c), stage_outputs, ffinfo
 

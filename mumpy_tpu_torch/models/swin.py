@@ -20,8 +20,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.ln_mlp import ln_mlp, ln_mlp_operands, ln_mlp_plain
+from ..ops.ln_mlp import ln_mlp_operands
 from ..ops.swin_block import swin_block, swin_block_operands, swin_block_plain
+from ..ops.swin_pair import shift_row_map, swin_pair, swin_pair_operands, swin_pair_plain
+from ..ops.vit3 import vit3, vit3_operands, vit3_plain
 from ..ops.window import partition_tokens, shifted_window_mask, unpartition_tokens
 
 __all__ = ["relative_position_index", "rel_pos_bias", "KernelSite", "Mlp",
@@ -118,7 +120,11 @@ def clamp_window(res, window: int, shift: int):
 
 class SwinBlock(KernelSite):
     """Standard Swin block over a (T*H, W) temporally folded grid; the whole
-    block runs through the ``swin_block`` kernel on window-major tokens."""
+    block runs through the ``swin_block`` kernel on window-major tokens, or,
+    when ``leads_pair`` (a shifted block followed by a plain one, set by the
+    encoder), the two run together through ``swin_pair`` (:meth:`pair_forward`)."""
+
+    leads_pair = False
 
     def __init__(self, dim, input_resolution, num_heads, window_size=7, shift_size=0,
                  mlp_ratio=4.0, temporal_dim=1):
@@ -143,10 +149,14 @@ class SwinBlock(KernelSite):
         else:
             mb = bias[None]  # (1, H, n, n)
         a, m = self.attn, self.mlp
-        return swin_block_operands(
+        ops = swin_block_operands(
             self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias, a.proj.weight,
             a.proj.bias, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
             m.fc2.weight, m.fc2.bias, mb, a.num_heads)
+        if self.leads_pair:  # the shift's row map, in the pair's GEMMs
+            ops["shift_map"] = shift_row_map(*self.grid(), self.window,
+                                             self.shift).to(bias.device)
+        return ops
 
     def forward(self, x):
         gh, gw = self.grid()
@@ -154,6 +164,14 @@ class SwinBlock(KernelSite):
         fn = swin_block if self.use_kernels else swin_block_plain
         wins = fn(wins, self.kernel_ops())
         return unpartition_tokens(wins, gh, gw, self.window, self.shift)
+
+    def pair_forward(self, plain: "SwinBlock", wins):
+        """This shifted block, then the unshifted ``plain`` block, on unshifted
+        window-major tokens (B*nW, window^2, C) through ``swin_pair``."""
+        ops = self.kernel_ops()
+        pair = swin_pair_operands(ops, plain.kernel_ops(), ops["shift_map"],
+                                  (*self.grid(), self.window, self.shift))
+        return (swin_pair if self.use_kernels else swin_pair_plain)(wins, pair)
 
 
 class PatchMerging(nn.Module):
@@ -183,9 +201,9 @@ class VitAttention(nn.Module):
 
 
 class VitBlock(KernelSite):
-    """Pre-LN ViT block on token-major (B, n, C).  The attention (n = 3 for
-    the global temporal ViT) is plain PyTorch; the MLP tail runs through the
-    ``ln_mlp`` kernel."""
+    """Pre-LN ViT block on time-major tokens (3, R, C): the global temporal
+    ViT attends over n = 3 time slices for each of its R = B*49 rows.  The
+    whole layer runs through the ``vit3`` kernel."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int):
         super().__init__()
@@ -196,17 +214,11 @@ class VitBlock(KernelSite):
         self.mlp = Mlp(dim, mlp_dim)
 
     def build_ops(self):
-        return mlp_tail_operands(self.norm2, self.mlp)
+        a, m = self.attn, self.mlp
+        return vit3_operands(self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
+                             a.proj.weight, a.proj.bias, self.norm2.weight,
+                             self.norm2.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight,
+                             m.fc2.bias, self.num_heads)
 
     def forward(self, x):
-        b, n, c = x.shape
-        h = self.num_heads
-        hd = c // h
-        qkv = self.attn.qkv(self.norm1(x)).reshape(b, n, 3, h, hd)
-        q, k, v = qkv.unbind(2)
-        a = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q * hd**-0.5, k), dim=-1)
-        y = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(b, n, c)
-        x = x + self.attn.proj(y)
-        fn = ln_mlp if self.use_kernels else ln_mlp_plain
-        return fn(x, self.kernel_ops())
-
+        return (vit3 if self.use_kernels else vit3_plain)(x, self.kernel_ops())

@@ -1,2 +1,3 @@
-"""Channels-last tensor ops and the four hand-written CUDA kernels
-(``ln_mlp``, ``attn_ln``, ``swin_block``, ``cva``) of the serving path."""
+"""Channels-last tensor ops and the six hand-written CUDA kernels
+(``swin_block``, ``swin_pair``, ``attn_ln``, ``ln_mlp``, ``cva``, ``vit3``) of
+the serving path."""

@@ -68,12 +68,14 @@ def attn_ln_plain(x, ops):
     return y, x + y
 
 
-def attention_launches(x2, ops, r, n):
-    """LN+qkv GEMM and the attention core; returns the (R*N, C) head outputs."""
+def attention_launches(x2, ops, r, n, a_map=None):
+    """LN+qkv GEMM and the attention core; returns the (R*N, C) head outputs.
+    With ``a_map`` the qkv GEMM reads its rows through that row map."""
     c = x2.shape[-1]
     heads = ops["heads"]
     hd = c // heads
-    qkv, _ = cuda_lib.gemm(x2, ops["w_qkv"], ops["b_qkv"], ln=(ops["ln_g"], ops["ln_b"]))
+    qkv, _ = cuda_lib.gemm(x2, ops["w_qkv"], ops["b_qkv"], ln=(ops["ln_g"], ops["ln_b"]),
+                           a_map=a_map)
     return cuda_lib.window_attention(
         qkv, qkv, qkv, r=r, n=n, heads=heads, hd=hd, q_mod=r, ldq=3 * c, ldk=3 * c,
         ldv=3 * c, q_off=0, k_off=c, v_off=2 * c, mb=ops["mb"], scale=hd**-0.5)

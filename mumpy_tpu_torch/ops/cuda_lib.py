@@ -35,9 +35,10 @@ build_log = ""
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mumpy_gemm": [_P] * 8 + [_I] * 7 + [_P],
+    "mumpy_gemm": [_P] * 10 + [_I] * 8 + [_P],
     "mumpy_window_attention": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
     "mumpy_cva_sample": [_P] * 4 + [_I] * 7 + [_P],
+    "mumpy_vit3_attention": [_P] * 2 + [_I] * 3 + [_F, _I, _P],
 }
 
 
@@ -138,10 +139,13 @@ _TC_MAX_LN_K = 1024  # kTcMaxLnK: LayerNorm rows the bf16 GEMM holds in register
 
 
 def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
-         gelu=False, a_sum=1, a_seg=1):
+         gelu=False, a_sum=1, a_seg=1, a_map=None, c_map=None):
     """Launch the tiled GEMM (csrc/gemm.cu).  ``x`` is (M*a_sum, K) (the fold
     reads ``a_sum`` rows per output row), ``w`` (K, N).  Returns ``y`` and/or
-    ``out = res + y`` as requested."""
+    ``out = res + y`` as requested.  ``a_map`` / ``c_map`` are int32 row maps
+    of a period L dividing M: A row m (and its LayerNorm) is read from x row
+    ``(m // L) * L + a_map[m % L]``, and the residual row and the stored rows
+    of y / out are ``(m // L) * L + c_map[m % L]``."""
     k = x.shape[-1]
     m = x.numel() // k // a_sum
     n = w.shape[1]
@@ -154,6 +158,16 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
         ln_g, ln_b = ln
         require(ln_g, "ln scale", x, shape=(k,))
         require(ln_b, "ln bias", x, shape=(k,))
+    map_len = 0
+    for mp, name in ((a_map, "a_map"), (c_map, "c_map")):
+        if mp is not None:
+            require(mp, name, x, dtype=torch.int32)
+            if map_len and mp.numel() != map_len:
+                raise ValueError("a_map and c_map differ in length")
+            map_len = mp.numel()
+    if map_len and (m % map_len or a_sum > 1):
+        raise ValueError(f"gemm: a row map of length {map_len} needs M={m} to be a "
+                         f"multiple of it and no row fold")
     if m > _GRID_Y_MAX_ROWS:
         raise ValueError(f"gemm: {m} rows exceed the grid limit {_GRID_Y_MAX_ROWS}")
     if x.dtype == torch.bfloat16:  # the tensor-core loop's limits (csrc/gemm.cu)
@@ -169,8 +183,8 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
         require(res, "res", x, shape=(m, n))
         out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     check(lib().mumpy_gemm(ptr(x), ptr(w), ptr(bias), ptr(ln_g), ptr(ln_b), ptr(res),
-                           ptr(y), ptr(out), m, n, k, a_sum, a_seg, int(gelu),
-                           dtype_code(x), stream_of(x)), "gemm")
+                           ptr(a_map), ptr(c_map), ptr(y), ptr(out), m, n, k, a_sum,
+                           a_seg, int(gelu), map_len, dtype_code(x), stream_of(x)), "gemm")
     return y, out
 
 
@@ -213,3 +227,19 @@ def cva_sample(x2, gy, gx, *, b1, n, groups, ws):
     check(lib().mumpy_cva_sample(ptr(x2), ptr(gy), ptr(gx), ptr(s), r, b1, n, c, groups,
                                  ws, dtype_code(x2), stream_of(x2)), "cva_sample")
     return s
+
+
+def vit3_attention(qkv, *, heads):
+    """Launch the n = 3 attention (csrc/vit3_attention.cu) on the time-major
+    packed ``qkv`` (3, R, 3C).  Returns o (3, R, C)."""
+    three, r, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // heads
+    require(qkv, "qkv", qkv)
+    if three != 3 or c3 % 3 or c % heads or hd > 128:
+        raise ValueError(f"vit3 attention takes (3, R, 3C) with hd = C / heads <= 128, "
+                         f"got {tuple(qkv.shape)} and {heads} heads")
+    o = torch.empty((3, r, c), device=qkv.device, dtype=qkv.dtype)
+    check(lib().mumpy_vit3_attention(ptr(qkv), ptr(o), r, heads, hd, hd**-0.5,
+                                     dtype_code(qkv), stream_of(qkv)), "vit3_attention")
+    return o

@@ -26,8 +26,10 @@ def set_kernel_path(model: torch.nn.Module, use_kernels: bool) -> None:
 
 def prepare_for_inference(model: torch.nn.Module) -> torch.nn.Module:
     """Eval mode, and every kernel site's operands built once from the current
-    parameters (weight layouts; the additive mask+bias with its key-pad
-    columns at -1e30).  Call again after moving or casting the model."""
+    parameters: the weight layouts, the additive mask+bias with its key-pad
+    columns at -1e30, the row map of each shifted block (which a stage-2 pair
+    led by that block runs through), and the ViT layers' vit3 operands.  Call
+    again after moving or casting the model."""
     model.eval()
     with torch.no_grad():
         for m in model.modules():

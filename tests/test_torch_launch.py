@@ -1,106 +1,26 @@
 """The kernels' launch sequences on the CPU, against a model of the C ABI.
 
 ``launch_*`` (the CUDA path of each kernel wrapper) only runs on the card.
-Here ``cuda_lib``'s library is replaced by a torch model of what each C entry
-point of ``csrc/`` computes, reading and writing the same raw buffers, so the
-shapes, row strides, column offsets, mask period, ``q_mod`` and fold indices
-the wrappers pass are checked against the plain versions without a GPU.  The
-model is exact in f32 (1e-5); in bf16 it rounds where the kernels round, and
-is held to the chip's 2e-2 * max(1, max|ref|).
-"""
+Here ``cuda_lib``'s library is replaced by ``torch_cases.ModelLib``, a torch
+model of what each C entry point of ``csrc/`` computes, reading and writing
+the same raw buffers, so the shapes, row strides, column offsets, mask
+period, ``q_mod``, fold indices and row maps the wrappers pass are checked
+against the plain versions without a GPU.  The model is exact in f32 (1e-5);
+in bf16 it rounds where the kernels round, and is held to the chip's
+2e-2 * max(1, max|ref|).
 
-import ctypes
+This file: ``swin_block`` and ``attn_ln``, and the branch comparison of
+``chip_smoke.py`` on them.
+"""
 
 import pytest
 import torch
-import torch.nn.functional as F
 
-from chip_smoke import BF16_BRANCH_TOL, branch_error, drop_mask_bias
-from mumpy_tpu_torch.ops import attn_ln, cuda_lib, cva, ln_mlp, swin_block
-from torch_cases import (C, Draw, attn_operands, attn_weights, cva_case, mask_bias,
-                         mlp_operands, mlp_weights, t, windows)
-
-DTYPES = {0: torch.float32, 1: torch.bfloat16}
-
-
-def _view(p, n, dtype):
-    """The n elements at a ctypes pointer, as a writable tensor."""
-    size = n * torch.empty((), dtype=dtype).element_size()
-    return torch.frombuffer((ctypes.c_char * size).from_address(p.value), dtype=dtype)
-
-
-class ModelLib:
-    """What csrc/gemm.cu, window_attention.cu and cva_sample.cu compute."""
-
-    def mumpy_gemm(self, x, w, bias, g, b, res, y, out, M, N, K, a_sum, a_seg, gelu,
-                   dtype, stream):
-        dt = DTYPES[dtype]
-        X = _view(x, M * a_sum * K, dt).reshape(M * a_sum, K).float()
-        if a_sum > 1:
-            m = torch.arange(M)
-            base = (m // a_seg) * a_sum * a_seg + m % a_seg
-            A = sum(X[base + t * a_seg] for t in range(a_sum))
-        elif g is not None:
-            A = F.layer_norm(X, (K,), _view(g, K, dt).float(), _view(b, K, dt).float(),
-                             1e-5).to(dt).float()
-        else:
-            A = X
-        v = A @ _view(w, K * N, dt).float().reshape(K, N)
-        if bias is not None:
-            v = v + _view(bias, N, dt).float()
-        yv = (F.gelu(v) if gelu else v).to(dt).reshape(-1)
-        if y is not None:
-            _view(y, M * N, dt).copy_(yv)
-        if out is not None:
-            _view(out, M * N, dt).copy_((_view(res, M * N, dt).float() + yv.float()).to(dt))
-        return 0
-
-    def mumpy_window_attention(self, q, k, v, o, mb, R, N, H, hd, q_mod, ldq, ldk, ldv,
-                               ldo, P, scale, dtype, stream):
-        dt = DTYPES[dtype]
-
-        def heads(p, windows, ld):
-            flat = _view(p, (windows * N - 1) * ld + H * hd, dt)
-            return flat.as_strided((windows, N, H, hd), (N * ld, ld, hd, 1)).float()
-
-        rows = torch.arange(R)
-        s = torch.einsum("rihd,rjhd->rhij", heads(q, q_mod, ldq)[rows % q_mod],
-                         heads(k, R, ldk)) * scale
-        if mb is not None:
-            s = s + _view(mb, P * H * N * 64, torch.float32).reshape(P, H, N, 64)[
-                rows % P][..., :N]
-        p = torch.softmax(s, -1).to(dt).float()
-        out = torch.einsum("rhij,rjhd->rihd", p, heads(v, R, ldv)).reshape(R * N, H * hd)
-        _view(o, R * N * ldo, dt).reshape(R * N, ldo)[:, :H * hd].copy_(out.to(dt))
-        return 0
-
-    def mumpy_cva_sample(self, x2, gy, gx, s, R, B1, N, C, groups, ws, dtype, stream):
-        dt = DTYPES[dtype]
-        coords = [_view(c, groups * B1 * N, torch.float32).reshape(groups, B1, N)
-                  for c in (gy, gx)]
-        sampled = cva.sample_plain(_view(x2, R * N * C, dt).reshape(R, N, C), *coords,
-                                   groups, ws)
-        _view(s, R * N * C, dt).copy_(sampled.reshape(-1))
-        return 0
-
-
-@pytest.fixture
-def model_lib(monkeypatch):
-    monkeypatch.setattr(cuda_lib, "_lib", ModelLib())
-    monkeypatch.setattr(cuda_lib, "stream_of", lambda tensor: None)
-
-
-def _cast(ops, dtype):
-    if isinstance(ops, dict):
-        return {k: v if k == "mb" else _cast(v, dtype) for k, v in ops.items()}
-    return ops.to(dtype) if torch.is_tensor(ops) else ops
-
-
-def _check(got, ref, dtype):
-    for g, r in zip(got if isinstance(got, tuple) else (got,),
-                    ref if isinstance(ref, tuple) else (ref,)):
-        err = (g.float() - r).abs().max().item()
-        assert err <= (1e-5 if dtype == torch.float32 else 2e-2 * max(1.0, r.abs().max().item()))
+from chip_smoke import BF16_BRANCH_TOL, branch_error, cast_ops, drop_mask_bias
+from mumpy_tpu_torch.ops import attn_ln, swin_block
+from torch_cases import (Draw, attn_operands, attn_weights, check_launches, mask_bias,
+                         mlp_operands, mlp_weights, model_lib, t, windows)  # noqa: F401
+from torch_cases import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -110,57 +30,10 @@ def test_swin_block_and_attn_ln_launches(model_lib, dtype, shifted):
     a, m, mb, x = attn_weights(d), mlp_weights(d), mask_bias(d, shifted), windows(d)
     ops = {"attn": attn_operands(a, mb), "mlp": mlp_operands(m)}
     xd = t(x).to(dtype)
-    _check(swin_block.launch_swin_block(xd, _cast(ops, dtype)),
+    check_launches(swin_block.launch_swin_block(xd, cast_ops(ops, dtype)),
            swin_block.swin_block_plain(t(x), ops), dtype)
-    _check(attn_ln.launch_attn_ln(xd, _cast(ops["attn"], dtype)),
+    check_launches(attn_ln.launch_attn_ln(xd, cast_ops(ops["attn"], dtype)),
            attn_ln.attn_ln_plain(t(x), ops["attn"]), dtype)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ln_mlp_launches(model_lib, dtype):
-    d = Draw(12)
-    w, x = mlp_weights(d), d(3, 37, C, std=1.0)
-    _check(ln_mlp.launch_ln_mlp(t(x).to(dtype), _cast(mlp_operands(w), dtype)),
-           ln_mlp.ln_mlp_plain(t(x), mlp_operands(w)), dtype)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ratio", [1, 3])
-def test_cva_launches(model_lib, dtype, ratio):
-    _, (x1, x2, gy, gx), ops = cva_case(ratio, seed=13)
-    got = cva.launch_cva(t(x1).to(dtype), t(x2).to(dtype), t(gy), t(gx), _cast(ops, dtype))
-    _check(got, cva.cva_plain(t(x1), t(x2), t(gy), t(gx), ops), dtype)
-
-
-def test_launch_checks_reject_bad_operands(model_lib):
-    d = Draw(14)
-    w = mlp_operands(mlp_weights(d))
-    x = t(d(10, C))
-    with pytest.raises(TypeError):
-        ln_mlp.launch_ln_mlp(x.double(), w)
-    with pytest.raises(ValueError, match="shape"):
-        cuda_lib.gemm(x, w["w2"])
-    with pytest.raises(ValueError, match="contiguous"):
-        cuda_lib.gemm(t(d(C, 10)).t(), w["w1"])
-    with pytest.raises(ValueError, match="n <= 64"):
-        cuda_lib.window_attention(x, x, x, r=1, n=65, heads=1, hd=8, q_mod=1, ldq=8,
-                                  ldk=8, ldv=8, scale=1.0)
-
-
-def test_bf16_gemm_takes_tensor_core_shapes_only(model_lib):
-    """The bf16 GEMM runs only on the tensor-core loop: widths off a multiple
-    of 8, LayerNorm rows over 1024 and unaligned operands are refused."""
-    d = Draw(15)
-    x, w = t(d(10, 20)).bfloat16(), t(d(20, 16)).bfloat16()
-    with pytest.raises(ValueError, match="multiples of 8"):
-        cuda_lib.gemm(x, w)
-    g = torch.ones(1032, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        cuda_lib.gemm(torch.zeros(4, 1032, dtype=torch.bfloat16),
-                      torch.zeros(1032, 8, dtype=torch.bfloat16), ln=(g, g))
-    buf = torch.zeros(4 * 16 + 1, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="aligned"):
-        cuda_lib.gemm(buf[1:].view(4, 16), torch.zeros(16, 8, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("shifted", [False, True])
@@ -173,12 +46,13 @@ def test_branch_comparison_catches_dropped_mask_bias(model_lib, shifted):
     d = Draw(16)
     a, m = attn_weights(d, c), mlp_weights(d, c, 4 * c)
     mb, x = mask_bias(d, shifted, heads, win, grid), windows(d, c, win, grid)
-    ops = _cast({"attn": attn_operands(a, mb, heads), "mlp": mlp_operands(m)}, torch.bfloat16)
+    ops = cast_ops({"attn": attn_operands(a, mb, heads), "mlp": mlp_operands(m)},
+                   torch.bfloat16)
     x16 = t(x).bfloat16()
     for name, launch, plain, kops in (
             ("swin_block", swin_block.launch_swin_block, swin_block.swin_block_plain, ops),
             ("attn_ln", attn_ln.launch_attn_ln, attn_ln.attn_ln_plain, ops["attn"])):
-        ref16 = plain(x16.float(), _cast(kops, torch.float32))
+        ref16 = plain(x16.float(), cast_ops(kops, torch.float32))
         good = branch_error(name, x16.float(), launch(x16, kops), ref16)
         bad = branch_error(name, x16.float(), launch(x16, drop_mask_bias(kops)), ref16)
         assert good <= BF16_BRANCH_TOL / 2 and bad >= 3 * BF16_BRANCH_TOL, (name, good, bad)

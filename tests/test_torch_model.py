@@ -1,17 +1,17 @@
-"""The port's whole serving model against the JAX package at ``tiny_config(32)``.
+"""The port's whole serving model against the JAX package at ``tiny_config(128)``.
 
-* The port's encoder / decoder state_dicts have exactly the reference's keys
-  and shapes (``build_reference_state_dicts``), so
-  ``mumpy_tpu/utils/weight_port.py:port_state_dicts`` maps the port's weights
-  onto the JAX model with nothing missing or left over.
-* ``from_jax_params`` inverts that map exactly.
+At 128^2 stage 2 is an 8x8 grid with window 4 and shift 2, so each view runs
+one shifted (shifted, plain) pair through the ``swin_pair`` site and a lone
+last block, and the global ViT runs time-major through ``vit3`` on t = 3.
+
+* ``from_jax_params`` inverts ``mumpy_tpu/utils/weight_port.py:port_state_dicts``
+  exactly.
 * Logits: every parameter drawn from a seeded N(0, 0.2) (proj_out included,
   so the cross-view attention contributes), the same clip through both
   models in f32 — the port on its plain versions (CPU), JAX on its XLA path —
-  within 1e-4 * max(1, max|logit|).
+  within 1e-4 * max(1, max|logit|).  One JAX compile for the file.
 """
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -25,12 +25,14 @@ import mumpy_tpu.utils.weight_port as jwp
 import mumpy_tpu.configs.model_config as jcfg
 import mumpy_tpu_torch.configs as pcfg
 from mumpy_tpu.models.mumpy import Mumpy as JaxMumpy
+from mumpy_tpu_torch.models import swin
 from mumpy_tpu_torch.models.mumpy import Mumpy
-from mumpy_tpu_torch.utils.serving import make_serving_forward, prepare_for_inference
+from mumpy_tpu_torch.utils.serving import (make_serving_forward, prepare_for_inference,
+                                           set_kernel_path)
 from mumpy_tpu_torch.utils.weight_port import from_jax_params, random_state_dict
-from tests.test_weight_port import build_reference_state_dicts
+from torch_cases import one_torch_thread  # noqa: F401  (autouse)
 
-CFG, PORT_CFG = jcfg.tiny_config(32), pcfg.tiny_config(32)
+CFG, PORT_CFG = jcfg.tiny_config(128), pcfg.tiny_config(128)
 
 
 def _to_jax(model, template):
@@ -48,7 +50,7 @@ def _to_jax(model, template):
 
 @pytest.fixture(scope="module")
 def case():
-    clip = np.random.default_rng(1).standard_normal((2, 3, 32, 32, 3)).astype(np.float32)
+    clip = np.random.default_rng(1).standard_normal((2, 3, 128, 128, 3)).astype(np.float32)
     jmodel = JaxMumpy(CFG)
     shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), jnp.asarray(clip)))
     template = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes["params"])
@@ -58,33 +60,6 @@ def case():
     logits = np.asarray(jax.jit(lambda p, c: jmodel.apply({"params": p}, c))(
         params, jnp.asarray(clip)))
     return {"clip": clip, "model": model, "params": params, "jax_logits": logits}
-
-
-@pytest.mark.parametrize("name", ["multiswin_config", "tiny_config"])
-def test_port_config_matches_jax_config(name):
-    """The port's configuration holds the JAX package's values, field by field,
-    for every field the port has; the derived shapes agree too."""
-    ours, ref = getattr(pcfg, name)(), getattr(jcfg, name)()
-    for f in dataclasses.fields(ours):
-        if f.name == "views":
-            for v_ours, v_ref in zip(ours.views, ref.views, strict=True):
-                for vf in dataclasses.fields(v_ours):
-                    assert getattr(v_ours, vf.name) == getattr(v_ref, vf.name), vf.name
-        elif f.name == "global_encoder":
-            assert dataclasses.asdict(ours.global_encoder) == \
-                dataclasses.asdict(ref.global_encoder)
-        else:
-            assert getattr(ours, f.name) == getattr(ref, f.name), f.name
-    for prop in ("stage_shapes", "merged_channels", "encoder_out_channels"):
-        assert getattr(ours, prop) == getattr(ref, prop), prop
-
-
-def test_state_dict_keys_match_reference():
-    enc, dec = build_reference_state_dicts(CFG)
-    model = Mumpy(PORT_CFG)
-    for ours, ref in ((model.encoder.state_dict(), enc), (model.decoder.state_dict(), dec)):
-        assert {k: tuple(v.shape) for k, v in ours.items()} == \
-               {k: tuple(v.shape) for k, v in ref.items()}
 
 
 def test_from_jax_params_roundtrip(case):
@@ -100,7 +75,7 @@ def test_tiny_logits_match_jax(case):
     with torch.inference_mode():
         logits = model(torch.from_numpy(case["clip"])).numpy()
     ref = case["jax_logits"]
-    assert logits.shape == ref.shape == (2, 32, 32, 1)
+    assert logits.shape == ref.shape == (2, 128, 128, 1)
     assert np.abs(logits - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
 
 
@@ -118,7 +93,7 @@ def test_forward_before_prepare_raises():
     """Kernel operands are built by prepare_for_inference only: a model that
     was not prepared refuses to run rather than build them on the fly."""
     model = Mumpy(PORT_CFG).eval()
-    clip = torch.zeros(1, 3, 32, 32, 3)
+    clip = torch.zeros(1, 3, 128, 128, 3)
     with pytest.raises(RuntimeError, match="prepare_for_inference"), torch.inference_mode():
         model(clip)
 
@@ -129,3 +104,25 @@ def test_serving_forward_returns_probabilities(case):
     np.testing.assert_allclose(probs.numpy(), 1 / (1 + np.exp(-case["jax_logits"])),
                                atol=1e-5)
 
+
+def test_tiny_forward_runs_pair_and_vit3_sites(case, monkeypatch):
+    """The forward that matches JAX above goes through the new sites: per
+    view one shifted pair and one lone stage-2 block, and the two ViT layers
+    on time-major (3, B*16, 32) tokens."""
+    calls = {"swin_pair": [], "swin_block": [], "vit3": []}
+    for name in calls:
+        plain = getattr(swin, f"{name}_plain")
+
+        def record(x, ops, name=name, plain=plain):
+            calls[name].append(tuple(x.shape))
+            return plain(x, ops)
+
+        monkeypatch.setattr(swin, f"{name}_plain", record)
+    model = prepare_for_inference(case["model"])
+    set_kernel_path(model, False)
+    with torch.inference_mode():
+        model(torch.from_numpy(case["clip"]))
+    set_kernel_path(model, True)
+    assert calls["swin_pair"] == [(8, 16, 48), (8, 16, 48), (24, 16, 96)]
+    assert len(calls["swin_block"]) == 3
+    assert calls["vit3"] == [(3, 32, 32)] * 2

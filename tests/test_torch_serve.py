@@ -1,7 +1,9 @@
 """The port's serving CLI (``python -m mumpy_tpu_torch.serve``) on synthetic
-PNG clips: it writes ``masks_<dataset>/<seq>/{frame:04d}_instance_00.png``
-for every frame, which ``mumpy_tpu.utils.metrics.evaluate_dirs`` (the scorer
-behind ``measure.py``) pairs with the ground truth."""
+PNG clips: with ``-device cpu`` it writes
+``masks_<dataset>/<seq>/{frame:04d}_instance_00.png`` for every frame, which
+``mumpy_tpu.utils.metrics.evaluate_dirs`` (the scorer behind ``measure.py``)
+pairs with the ground truth; without it, on a machine with no card, it
+refuses to serve."""
 
 import os
 
@@ -15,6 +17,7 @@ from mumpy_tpu.utils.metrics import evaluate_dirs
 from mumpy_tpu_torch import serve
 from mumpy_tpu_torch.models.mumpy import Mumpy
 from mumpy_tpu_torch.utils.weight_port import random_state_dict
+from torch_cases import one_torch_thread  # noqa: F401  (autouse)
 
 SEQS = {"bear": 5, "boat": 4}
 
@@ -35,11 +38,10 @@ def data(tmp_path_factory):
     return root
 
 
-def _serve(data, results, *extra):
-    serve.main(["--tiny", "-imsize", "32", "-dataset", "davis", "-eval_split", "test",
-                "-seq_dir", str(data / "vi"), "-annot_dir", str(data / "annot"),
+def _serve(data, results, *extra, device=("-device", "cpu")):
+    serve.main(["--tiny", "-imsize", "32", "-dataset", "davis", "-seq_dir", str(data / "vi"),
                 "-results_dir", str(results), "-model_name", "run", "-batch_size", "4",
-                "-num_workers", "0", *extra])
+                *device, *extra])
     return results / "run" / "masks_davis"
 
 
@@ -63,3 +65,13 @@ def test_serve_loads_torch_checkpoint(data, tmp_path, capsys):
     out = _serve(data, tmp_path, "--bf16")
     assert "Loaded checkpoint" in capsys.readouterr().out
     assert len(os.listdir(out / "boat")) == SEQS["boat"]
+
+
+def test_serve_needs_a_card_unless_asked_for_the_cpu(data, tmp_path, monkeypatch):
+    """The default device is the GPU: with no card visible the CLI exits
+    non-zero with a message rather than serving on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        _serve(data, tmp_path, device=())
+    assert exc.value.code not in (0, None) and "-device cpu" in str(exc.value.code)
+    assert not (tmp_path / "run").exists()
