@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (``mumpy_tpu_torch``) of the Mumpy serving path on
-one CUDA GPU and check it.
+"""Drive the PyTorch port (``mumpy_tpu_torch``) of the Mumpy serving and
+training paths on one CUDA GPU and check them.
 
 Phases (any failure exits non-zero, before the result line):
 
@@ -36,6 +36,47 @@ Phases (any failure exits non-zero, before the result line):
    the larger of the bytes over 3.35 TB/s and the flops over 989 TFLOP/s,
    the H100 SXM's HBM rate and dense bf16 tensor-core peak), per instance.
 
+Training, the flagship at the DVI recipe's 12 clips per step (6 clips x 2
+inpainting streams, SGD) on seeded synthetic clips and masks, with
+drop-path 0.2:
+
+7. capture the input of every distinct instance of the two training kernels
+   (``attn_ln_train``, ``ln_mlp_train``) in one plain-path training forward,
+   and hold each kernel's forward and backward launches against its plain
+   version's autograd on seeded cotangents, in f32 and bf16: out, y, dx,
+   every weight gradient and d(mask+bias), by the largest error (f32
+   1e-4 * max(1, max|ref|), bf16 2e-2) and by branch RMS error (f32 1e-5,
+   bf16 2e-2; the branch of ``out`` is the keep-scaled ``out - x``, of dx
+   ``dx`` less the residual's cotangent).  Planted faults on the bf16
+   instances must each be caught: the mask+bias zeroed, the softmax
+   backward's rowsum term dropped, gelu' replaced by 1, and the keep factor
+   ignored, on seeded keep factors 0, 1 / (1 - 0.2) and 1 (the captured
+   ones are 1 or within 2% of it in the early stages);
+8. one training step on the kernel path from identical weights and keep
+   draws as the plain path: f32 loss within 1e-4 relative; every
+   parameter's f32 gradient against the plain path's in f64, by relative L2
+   of its own norm, within 1e-3 or twice the plain f32 path's error (f32
+   products in another order through 60 blocks), except a gradient that is
+   zero to rounding (below 1e-5 of its share of the whole gradient, such as
+   the CVA's key biases), which is held to that share and listed; bf16
+   gradients against the f32 plain ones, all parameters together, the
+   kernel path within twice the plain path's error;
+9. the launch counts of one ``train_step``: attn_ln_train 12 forward + 12
+   backward, ln_mlp_train 24 + 24, the serving kernels 0;
+10. four ``train_step``s on one batch in f32 and in bf16 from the same
+   weights: the loss finite and falling; then step ms by CUDA events of both
+   paths (plain, kernel, kernel, plain), peak memory, one step of each path
+   under ``torch.profiler`` (the kernels' device time against the untraced
+   step's ms: the device-idle share; launches; the longest kernels), and
+   each training kernel's ms per step (its ``Function``'s forward and
+   autograd backward, in bf16 beside its plain version's, and in f32)
+   against its bound (bf16: 989 TFLOP/s; f32: 67 TFLOP/s, the H100 SXM's
+   non-tensor f32 peak);
+11. ``python -m mumpy_tpu_torch.train``'s ``main`` for one epoch on
+   synthetic 224^2 PNG clips (two streams, 12 clips per step, two steps, a
+   val pass and the checkpoints), then ``mumpy_tpu_torch.serve``'s ``main``
+   on the ``weights_torch.pt`` it wrote, in f32 and in bf16.
+
 The weights are drawn with ``random_state_dict(..., fan_in=True)``: matrices
 at 1/sqrt(fan-in) and relative-position tables at unit scale, so every score,
 mask+bias term and branch is of order one at every width, and a kernel that
@@ -49,6 +90,8 @@ the last is ``{"ok": true, "device": {...}}``.  Run from the repository root:
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -77,6 +120,16 @@ KERNEL_INFO = {  # name -> (CUDA sources it launches, TPU kernel it replaces)
 }
 RESIDUAL_KERNELS = ("swin_block", "swin_pair", "ln_mlp", "vit3")  # out = x + branch
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16 tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12  # H100 SXM: f32 outside the tensor cores
+TRAIN_KERNEL_INFO = {  # name -> (CUDA sources, TPU kernel it replaces)
+    "attn_ln_train": (["gemm.cu", "window_attention.cu", "window_attention_bwd.cu",
+                       "train_rows.cu"], "mumpy_tpu/ops/pallas/attn_ln_vjp.py:188"),
+    "ln_mlp_train": (["gemm.cu", "train_rows.cu"], "mumpy_tpu/ops/pallas/ln_mlp_vjp.py:119"),
+}
+EXPECTED_TRAIN_LAUNCHES = {"attn_ln_train": (12, 12), "ln_mlp_train": (24, 24)}
+TRAIN_CLIPS = 6  # per inpainting stream; two streams: 12 clips per step (DVI recipe)
+LOSS_TOL, GRAD_TOL = 1e-4, 1e-3  # kernel vs plain training step, f32
+ZERO_GRAD = 1e-5  # a gradient below this share of the whole one is zero to rounding
 
 
 def log(*a):
@@ -293,6 +346,467 @@ class Capture:
             setattr(mod, attr, fn)
 
 
+# ---- training: the two training kernels and the training main path ----
+
+class TrainCapture:
+    """Record the arguments of every distinct training-kernel instance
+    (name, shapes, mask period) during one plain-path training forward, with
+    how often each ran.  An instance keeps the first draw whose keep factors
+    are not all 1, where one ran, so that the keep fault has rows to show on."""
+
+    def __init__(self):
+        from mumpy_tpu_torch.models import encoder, swin
+
+        self.sites = [(encoder, "attn_ln_train"), (encoder, "ln_mlp_train"),
+                      (swin, "ln_mlp_train")]
+        self.instances = {}
+
+    def add(self, name, args):
+        key = (name, tuple(args[0].shape), tuple(args[1].shape) if len(args) == 4 else None)
+        new = [tuple({k: (v.detach().clone() if torch.is_tensor(v) else v)
+                      for k, v in a.items()} if isinstance(a, dict) else a.detach().clone()
+                     for a in args), 0]
+        entry = self.instances.setdefault(key, new)
+        if bool((entry[0][-1] == 1).all()) and not bool((args[-1] == 1).all()):
+            entry[0] = new[0]
+        entry[1] += 1
+
+    def __enter__(self):
+        self.saved = [(mod, f"{name}_plain", getattr(mod, f"{name}_plain"))
+                      for mod, name in self.sites]
+        for mod, attr, fn in self.saved:
+            def rec(*args, fn=fn, name=attr[: -len("_plain")]):
+                self.add(name, args)
+                return fn(*args)
+            setattr(mod, attr, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def cast_train_args(args, dtype):
+    """Activations, mask+bias and weights in ``dtype``; keep factors f32."""
+    out = []
+    for a in args[:-1]:
+        if isinstance(a, dict):
+            out.append({k: v.to(dtype) if torch.is_tensor(v) else v for k, v in a.items()})
+        else:
+            out.append(a.to(dtype))
+    return tuple(out) + (args[-1].float(),)
+
+
+def train_kernel_run(name, args, cots, fault=None):
+    """The kernel's forward and backward launches on ``args`` (not counted),
+    outputs and gradients by name.  ``fault`` plants one of the checks'
+    faults."""
+    from mumpy_tpu_torch.ops import attn_ln_train as alt
+    from mumpy_tpu_torch.ops import ln_mlp_train as lmt
+    from mumpy_tpu_torch.ops.attn_ln import pad_mask_bias
+
+    keep = args[-1]
+    if fault == "keep ignored":
+        keep = torch.ones_like(keep)
+    with torch.no_grad():
+        if name == "attn_ln_train":
+            x, mb, p, _ = args
+            if fault == "mask+bias zeroed":
+                mb = torch.zeros_like(mb)
+            y, out = alt.launch_attn_ln_train(x, mb, p, keep)
+            g = alt.launch_attn_ln_train_bwd(
+                x, pad_mask_bias(mb), keep, p["ln_g"], p["ln_b"], p["w_qkv"], p["b_qkv"],
+                p["w_proj"], p["w_qkv"].t().contiguous(), p["heads"], *cots,
+                rowsum=fault != "rowsum dropped")
+            names = ("x", "mb", None, "ln_g", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj")
+            res = {"y": y, "out": out}
+            g = (g[0], g[1][..., : x.shape[1]], *g[2:])
+        else:
+            x, p, _ = args
+            out = lmt.launch_ln_mlp_train(x, p, keep)
+            g = lmt.launch_ln_mlp_train_bwd(
+                x, keep, p["ln_g"], p["ln_b"], p["w1"], p["b1"], p["w2"],
+                p["w1"].t().contiguous(), *cots, gelu_grad=fault != "gelu' = 1")
+            names = ("x", None, "ln_g", "ln_b", "w1", "b1", "w2", "b2")
+            res = {"out": out}
+    res.update({k: v for k, v in zip(names, g) if k is not None})
+    return {k: v.float() for k, v in res.items()}
+
+
+def train_plain_run(name, args, cots, tc):
+    """The plain version's outputs and autograd gradients, f32."""
+    from mumpy_tpu_torch.ops.attn_ln_train import attn_ln_train_plain
+    from mumpy_tpu_torch.ops.ln_mlp_train import ln_mlp_train_plain
+
+    plain = attn_ln_train_plain if name == "attn_ln_train" else ln_mlp_train_plain
+    outs, grads = tc.run_with_grads(plain, args, cots)
+    return {**dict(zip(("y", "out") if len(outs) == 2 else ("out",), outs)), **grads}
+
+
+def train_errors(got, ref, x, dres):
+    """(largest error / max(1, max|ref|), largest branch RMS error) over every
+    output and gradient; the branch of ``out`` is ``out - x`` and of dx ``dx``
+    less the residual's cotangent ``dres``."""
+    worst_max = worst_rms = 0.0
+    for k, r in ref.items():
+        e, s = rel_err(got[k], r)
+        worst_max = max(worst_max, e / s)
+        branch = r - x if k == "out" else (r - dres if k == "x" else r)
+        err = (got[k].double() - r.double()).pow(2).mean().sqrt().item()
+        worst_rms = max(worst_rms, err / max(branch.double().pow(2).mean().sqrt().item(), 1e-30))
+    return worst_max, worst_rms
+
+
+def train_work(name, args):
+    """(flops, bytes) of one forward + backward: the products and attention of
+    the contract and their gradients, each input (weights, cotangents
+    included) read once and each output and gradient written once."""
+    x, p = args[0], args[-2]
+    c = x.shape[-1]
+    rows = x.numel() // c
+    params = sum(v.numel() * v.element_size() for v in p.values() if torch.is_tensor(v))
+    act = x.numel() * x.element_size()
+    if name == "attn_ln_train":
+        n = x.shape[1]
+        mb = args[1].numel() * 4
+        flops = 24 * rows * c * c + 12 * rows * n * c
+        nbytes = 3 * act + mb + 3 * act + 2 * params + mb  # x, dy, dout; y, out, dx
+    else:
+        m = p["w1"].shape[0]
+        flops = 12 * rows * c * m
+        nbytes = 2 * act + 2 * act + 2 * params  # x, dy; out, dx
+    return flops, nbytes + args[-1].numel() * 4
+
+
+def training_phases(cfg, dev, smi, rng):
+    """Phases 7-11 on the flagship ``cfg``.  Returns the two training kernels'
+    result entries, or None when a phase failed."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_cases as tc
+    from mumpy_tpu_torch import serve
+    from mumpy_tpu_torch.ops import attn_ln, cva, ln_mlp, swin_block, swin_pair, vit3
+    from mumpy_tpu_torch.ops.attn_ln_train import attn_ln_train
+    from mumpy_tpu_torch.ops.ln_mlp_train import ln_mlp_train
+    from mumpy_tpu_torch.train import __main__ as train_cli
+    from mumpy_tpu_torch.train.optim import OptimConfig, Optimizer
+    from mumpy_tpu_torch.train.trainer import TrainState, _loss_for_batch, train_step
+    from mumpy_tpu_torch.utils.serving import set_kernel_path
+
+    train_kernels = {"attn_ln_train": attn_ln_train, "ln_mlp_train": ln_mlp_train}
+    serving_kernels = (swin_block.swin_block, swin_pair.swin_pair, attn_ln.attn_ln,
+                       ln_mlp.ln_mlp, cva.cva, vit3.vit3)
+    b, size = 2 * TRAIN_CLIPS, cfg.image_size
+    clip = torch.from_numpy(rng.standard_normal((b, 3, size, size, 3), dtype=np.float32))
+    mask = np.zeros((b, size, size), np.float32)
+    for i in range(b):  # one seeded rectangle per clip
+        y0, x0 = rng.integers(0, size * 2 // 3, size=2)
+        h, w = rng.integers(size // 10, size // 3, size=2)
+        mask[i, y0:y0 + h, x0:x0 + w] = 1.0
+    batch = {"image": clip, "mask": mask.reshape(b, -1)}
+    model = build_model(cfg, dev).train()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def generator(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # ---- 7. every training-kernel instance vs its plain version's autograd ----
+    set_kernel_path(model, False)
+    with TrainCapture() as cap, torch.no_grad():
+        model(clip.to(dev), generator=generator(SEED))
+    ok = True
+    errs = {k: 0.0 for k in train_kernels}
+    # per step: ms bf16, plain ms bf16, bound bf16, its ops and bytes parts, ms f32, bound f32
+    times = {k: [0.0] * 7 for k in train_kernels}
+    for (name, xshape, mbshape), (args, count) in cap.instances.items():
+        crng = np.random.default_rng(SEED + len(xshape))
+        cots = tuple(torch.from_numpy(crng.standard_normal(xshape, dtype=np.float32)).to(dev)
+                     for _ in range(2 if name == "attn_ln_train" else 1))
+        x = args[0].float()
+        dres = cots[-1]  # dout for attn_ln_train, dy for ln_mlp_train
+        got32, ref32 = train_kernel_run(name, args, cots), train_plain_run(name, args, cots, tc)
+        args16 = cast_train_args(args, torch.bfloat16)
+        cots16 = tuple(c.to(torch.bfloat16) for c in cots)
+        ref16 = train_plain_run(name, cast_train_args(args16, torch.float32),
+                                tuple(c.float() for c in cots16), tc)
+        got16 = train_kernel_run(name, args16, cots16)
+        torch.cuda.synchronize()
+        m32, b32 = train_errors(got32, ref32, x, dres)
+        m16, b16 = train_errors(got16, ref16, args16[0].float(), cots16[-1].float())
+        errs[name] = max(errs[name], max(rel_err(got32[k], r)[0] for k, r in ref32.items()))
+        good = m32 <= F32_TOL and b32 <= F32_BRANCH_TOL and m16 <= BF16_TOL and \
+            b16 <= BF16_BRANCH_TOL
+        faults = ["mask+bias zeroed", "rowsum dropped"] if name == "attn_ln_train" else \
+            ["gelu' = 1"]
+        control = ""
+        for fault in faults:
+            bad = train_kernel_run(name, args16, cots16, fault)
+            bc = train_errors(bad, ref16, args16[0].float(), cots16[-1].float())[1]
+            caught = bc > BF16_BRANCH_TOL
+            good &= caught
+            control += f"; {fault} {bc:.3g} {'caught' if caught else 'NOT CAUGHT'}"
+        # the keep fault on seeded keep factors 0, 1 / (1 - 0.2) and 1: the
+        # captured ones are all 1 where the rate is 0 and within 2% of it at
+        # stage 1, below what a 2e-2 bound can tell from 1
+        kv = tc.keep_vector(args[-1].numel()).to(dev)
+        args16k = args16[:-1] + (kv,)
+        ref16k = train_plain_run(name, cast_train_args(args16k, torch.float32),
+                                 tuple(c.float() for c in cots16), tc)
+        mk, bk = train_errors(train_kernel_run(name, args16k, cots16), ref16k,
+                              args16[0].float(), cots16[-1].float())
+        bc = train_errors(train_kernel_run(name, args16k, cots16, "keep ignored"), ref16k,
+                          args16[0].float(), cots16[-1].float())[1]
+        good &= mk <= BF16_TOL and bk <= BF16_BRANCH_TOL and bc > BF16_BRANCH_TOL
+        control += (f"; seeded keeps bf16 {mk:.3g} / {bk:.3g}, keep ignored {bc:.3g} "
+                    f"{'caught' if bc > BF16_BRANCH_TOL else 'NOT CAUGHT'}")
+        ok &= good
+        keep = args[-1]
+        log(f"[train-kernel] {name} x{xshape} mb{mbshape} x{count} (keep min {keep.min():.3g} "
+            f"max {keep.max():.3g}): max err / scale f32 {m32:.3g} bf16 {m16:.3g}; branch RMS "
+            f"err f32 {b32:.3g} bf16 {b16:.3g}{control} {'ok' if good else 'FAIL'}")
+
+        # time per step: forward + autograd backward as the step runs them,
+        # bf16 (and the kernel in f32), each beside its bound
+        flops, nbytes = train_work(name, args16)
+        row = times[name]
+        row[0] += count * cuda_ms(train_closure(name, args16, cots16, kernel=True), reps=5)
+        row[1] += count * cuda_ms(train_closure(name, args16, cots16, kernel=False), reps=5)
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row[2] += count * max(t_ops, t_bytes)
+        row[3] += count * t_ops
+        row[4] += count * t_bytes
+        row[5] += count * cuda_ms(train_closure(name, args, cots, kernel=True), reps=3)
+        flops, nbytes = train_work(name, args)
+        row[6] += count * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    del cap
+    if not ok:
+        log("[train-kernel] FAILED: a training kernel disagrees with its plain version, "
+            "or a planted fault went unseen")
+        return None
+
+    # ---- 8. one training step: kernel path vs plain path ----
+    def step_grads(use_kernels, dtype):
+        model.load_state_dict(init)
+        set_kernel_path(model, use_kernels)
+        model.zero_grad(set_to_none=True)
+        loss, _ = _loss_for_batch(model, batch, generator(SEED + 1), True, dtype)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {n: p.grad.detach().float().clone()
+                             for n, p in model.named_parameters()}
+
+    def rel_l2(a, b, scale):
+        return (a.double() - b.double()).norm().item() / max(scale, 1e-30)
+
+    def all_l2(ga, gb):
+        num = sum((ga[k].double() - gb[k].double()).pow(2).sum() for k in gb)
+        return (num / sum(gb[k].double().pow(2).sum() for k in gb)).sqrt().item()
+
+    loss_k, grads_k = step_grads(True, None)
+    loss_p, grads_p = step_grads(False, None)
+    _, grads_64 = step_grads(False, torch.float64)  # the reference: the plain path in f64
+    # Each path's f32 gradient is held against the f64 one by relative L2 of
+    # its own norm, except a gradient that is zero to rounding: below
+    # ZERO_GRAD of its share of the whole gradient (the RMS over all
+    # parameters times sqrt(size)), held to that share.  The CVA's key
+    # biases are such (softmax ignores a shift shared by all keys): 2e-8 to
+    # 6e-8 of their share at tiny_config on the CPU, where the smallest other
+    # gradient is 5.5e-3 of its share.  The kernel path's error must be
+    # within GRAD_TOL or twice the plain path's: a tensor summed with heavy
+    # cancellation (a relative-position table deep in the net) is that far
+    # off on any f32 path.
+    rms_all = (sum(g.double().pow(2).sum() for g in grads_64.values())
+               / sum(g.numel() for g in grads_64.values())).sqrt().item()
+    err_k, err_p, floored = {}, {}, {}
+    for k, g in grads_64.items():
+        own, share = g.double().norm().item(), rms_all * g.numel() ** 0.5
+        if own < ZERO_GRAD * share:
+            floored[k] = (rel_l2(grads_k[k], g, own), rel_l2(grads_p[k], g, own))
+            own = share
+        err_k[k], err_p[k] = rel_l2(grads_k[k], g, own), rel_l2(grads_p[k], g, own)
+    over = {k: e for k, e in err_k.items() if e > max(GRAD_TOL, 2 * err_p[k])}
+    wk, wp = max(err_k, key=err_k.get), max(err_p, key=err_p.get)
+    wr = max(err_k, key=lambda k: err_k[k] / max(err_p[k], 1e-30))
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[train-step] f32 loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel err {loss_err:.3g}); "
+        f"gradients vs the f64 plain path, rel L2 per tensor: kernel path max {err_k[wk]:.3g} "
+        f"({wk}, plain {err_p[wk]:.3g}), median {float(np.median(list(err_k.values()))):.3g}; "
+        f"plain path max {err_p[wp]:.3g} ({wp}), median "
+        f"{float(np.median(list(err_p.values()))):.3g}; largest kernel / plain ratio "
+        f"{err_k[wr] / max(err_p[wr], 1e-30):.3g} ({wr}, {err_k[wr]:.3g}); "
+        f"{sum(2 * e > GRAD_TOL for e in err_p.values())} tensors with plain error over "
+        f"{GRAD_TOL / 2:g}; over the bound: {over or 'none'} ({len(err_k)} tensors)")
+    log(f"[train-step] {len(floored)} tensors zero to rounding, held to their share (kernel, "
+        f"plain errors against their own norm: "
+        f"{', '.join(f'{k} {a:.3g}, {b:.3g}' for k, (a, b) in floored.items())})")
+    del grads_k, grads_64
+    _, g16k = step_grads(True, torch.bfloat16)
+    e16k = all_l2(g16k, grads_p)
+    del g16k
+    _, g16p = step_grads(False, torch.bfloat16)
+    e16p = all_l2(g16p, grads_p)
+    del g16p, grads_p
+    log(f"[train-step] bf16 gradients vs f32 plain, all parameters: kernel path rel L2 "
+        f"{e16k:.4g}, plain path {e16p:.4g}")
+    if loss_err > LOSS_TOL or over or not e16k <= 2 * e16p:
+        log("[train-step] FAILED")
+        return None
+
+    # ---- 9. launch counts of one train_step (the main path) ----
+    model.load_state_dict(init)
+    set_kernel_path(model, True)
+    state = TrainState(model, Optimizer(model.named_parameters(), OptimConfig(), iter_max=100))
+    for k in (*serving_kernels, *train_kernels.values()):
+        k.launches = 0
+        if hasattr(k, "backward_launches"):
+            k.backward_launches = 0
+    train_step(state, batch, generator(SEED + 2))
+    torch.cuda.synchronize()
+    counts = {n: (k.launches, k.backward_launches) for n, k in train_kernels.items()}
+    serving_counts = {k.__name__: k.launches for k in serving_kernels}
+    log(f"[train-main] launches per train_step (forward, backward): {counts}; serving "
+        f"kernels {serving_counts}")
+    if counts != EXPECTED_TRAIN_LAUNCHES or any(serving_counts.values()):
+        log("[train-main] FAILED")
+        return None
+
+    # ---- 10. steps on one batch: the loss falls; step time and memory ----
+    for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
+        model.load_state_dict(init)
+        set_kernel_path(model, True)
+        state = TrainState(model, Optimizer(model.named_parameters(), OptimConfig(),
+                                            iter_max=100))
+        gen = generator(SEED + 3)
+        losses = [float(train_step(state, batch, gen, dtype)["total"]) for _ in range(4)]
+        falls = all(np.isfinite(losses)) and losses[-1] < losses[0]
+        log(f"[train-main] {tag} losses over 4 steps on one batch (kernel path): "
+            f"{[round(v, 5) for v in losses]} {'falling' if falls else 'NOT FALLING'}")
+        if not falls:
+            log("[train-main] FAILED")
+            return None
+        step_ms = {False: [], True: []}
+        for use_kernels in (False, True, True, False):
+            set_kernel_path(model, use_kernels)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: train_step(state, batch, gen, dtype), reps=3)
+            step_ms[use_kernels].append(ms)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"[train-time] {tag} {'kernel' if use_kernels else 'plain'} path: "
+                f"{ms:.1f} ms/step at {b} clips, peak {peak:.2f} GiB ({smi})")
+        for use_kernels in (True, False):
+            set_kernel_path(model, use_kernels)
+            kernels = device_kernels(lambda: train_step(state, batch, gen, dtype))
+            busy = sum(t for t, _ in kernels.values())
+            wall = float(np.mean(step_ms[use_kernels]))
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:4]
+            log(f"[train-profile] {tag} {'kernel' if use_kernels else 'plain'} path: device "
+                f"{busy:.1f} ms of the {wall:.1f} ms step, idle {100 - 100 * busy / wall:.1f}%; "
+                f"{sum(n for _, n in kernels.values())} kernel launches; longest: "
+                + "; ".join(f"{t:.1f} ms x{n} {k[:60]}" for k, (t, n) in top) + f" ({smi})")
+    for name, (k_ms, p_ms, b_ms, _, _, k32, b32) in times.items():
+        log(f"[train-time] {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms per bf16 step (forward + backward); f32 kernel {k32:.3f} ms, "
+            f"bound {b32:.3f} ms ({smi})")
+    del state, model
+    torch.cuda.empty_cache()
+
+    # ---- 11. the train CLI, then serve on its weights, in f32 and bf16 ----
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    for flags in ((), ("--bf16",)):
+        shutil.rmtree(root, ignore_errors=True)
+        write_synthetic_clips(root, rng, size)
+        res = root / "results"
+        t0 = time.perf_counter()
+        train_cli.main(["-model_name", "smoke", "-results_dir", str(res), "-dataset", "davis",
+                        "-batch_size", str(TRAIN_CLIPS), "-max_epoch", "1", "-print_every", "1",
+                        "-seq_dir", str(root / "vi"), "-seq_dir2", str(root / "cp"),
+                        "-annot_dir", str(root / "annot"), *flags])
+        t1 = time.perf_counter()
+        serve.main(["-model_name", "smoke", "-results_dir", str(res), "-dataset", "davis",
+                    "-seq_dir", str(root / "vi"), "-batch_size", str(TRAIN_CLIPS), *flags])
+        n_masks = sum(len(files) for _, _, files in os.walk(res / "smoke" / "masks_davis"))
+        weights = (res / "smoke" / "weights_torch.pt").exists()
+        log(f"[train-cli] {'bf16' if flags else 'f32'}: one epoch trained in {t1 - t0:.1f} s "
+            f"(checkpoints included) and served: weights_torch.pt written {weights}, "
+            f"{n_masks} masks")
+        shutil.rmtree(root, ignore_errors=True)
+        if not weights or n_masks != SYNTH_SEQS * SYNTH_FRAMES:
+            log("[train-cli] FAILED")
+            return None
+
+    return [{"name": name, "route": "cuda", "source": f"mumpy_tpu_torch/ops/{name}.py",
+             "cuda_sources": [f"mumpy_tpu_torch/csrc/{f}" for f in TRAIN_KERNEL_INFO[name][0]],
+             "replaces": TRAIN_KERNEL_INFO[name][1],
+             "launches": sum(counts[name]), "forward_launches": counts[name][0],
+             "backward_launches": counts[name][1], "max_abs_err": errs[name],
+             "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],
+             "bound_by": "operations" if times[name][3] >= times[name][4] else "bytes",
+             "f32_ms": times[name][5], "f32_bound_ms": times[name][6],
+             # no single PyTorch call computes either contract (forward and backward)
+             "library_ms": None}
+            for name in train_kernels]
+
+
+def device_kernels(fn):
+    """{name: (device ms, launches)} of the kernels (and copies) one call of
+    ``fn`` runs on the card, from ``torch.profiler``.  They run on one
+    stream, so their sum is the time the device was busy."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def train_closure(name, args, cots, kernel):
+    """One forward and autograd backward of the kernel's ``Function`` (its
+    launches, uncounted) or of the plain version, on ``args`` as they are,
+    for timing: nothing is cast or copied outside the call."""
+    from mumpy_tpu_torch.ops import attn_ln_train as alt
+    from mumpy_tpu_torch.ops import ln_mlp_train as lmt
+
+    if name == "attn_ln_train":
+        fn = alt.launch_attn_ln_train if kernel else alt.attn_ln_train_plain
+    else:
+        fn = lmt.launch_ln_mlp_train if kernel else lmt.ln_mlp_train_plain
+    leaves = []
+
+    def leaf(t):
+        t = t.detach().requires_grad_()
+        leaves.append(t)
+        return t
+
+    fargs = [{k: leaf(v) if torch.is_tensor(v) else v for k, v in a.items()}
+             if isinstance(a, dict) else (a if i == len(args) - 1 else leaf(a))
+             for i, a in enumerate(args)]
+
+    def run():
+        outs = fn(*fargs)
+        torch.autograd.grad(outs if isinstance(outs, tuple) else (outs,), leaves, cots)
+
+    return run
+
+
+SYNTH_SEQS, SYNTH_FRAMES = 2, 6  # 12 clips: two train steps of 6 clips x 2 streams
+
+
+def write_synthetic_clips(root, rng, size):
+    """Two inpainting streams of size^2 PNG frames and their annotations."""
+    from PIL import Image
+
+    for s in range(SYNTH_SEQS):
+        name = f"seq{s}"
+        for sub in ("vi", "cp", "annot"):
+            os.makedirs(root / sub / name, exist_ok=True)
+        for i in range(SYNTH_FRAMES):
+            for sub in ("vi", "cp"):
+                Image.fromarray(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)).save(
+                    root / sub / name / f"{i:05d}.png")
+            m = np.zeros((size, size), np.uint8)
+            m[size // 6 + i: size // 2, size // 4: size * 3 // 4 - i] = 255
+            Image.fromarray(m).save(root / "annot" / name / f"{i:05d}.png")
+
+
 def build_model(cfg, device):
     from mumpy_tpu_torch.models.mumpy import Mumpy
     from mumpy_tpu_torch.utils.weight_port import random_state_dict
@@ -475,6 +989,14 @@ def main() -> int:
         log(f"[time] {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
             f"per bf16 batch-32 forward ({smi})")
 
+    del fwd, cap, model
+    torch.cuda.empty_cache()
+
+    # ---- 7-11. the training path ----
+    train_entries = training_phases(cfg, dev, smi, rng)
+    if train_entries is None:
+        return 1
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"mumpy_tpu_torch/ops/{name}.py",
          "cuda_sources": [f"mumpy_tpu_torch/csrc/{f}" for f in KERNEL_INFO[name][0]],
@@ -484,7 +1006,7 @@ def main() -> int:
          "bound_by": "operations" if times[name][3] >= times[name][4] else "bytes",
          # no single PyTorch call computes any of these whole contracts
          "library_ms": None}
-        for name in EXPECTED_LAUNCHES]}))
+        for name in EXPECTED_LAUNCHES] + train_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

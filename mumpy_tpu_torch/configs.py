@@ -1,7 +1,8 @@
-"""Model configurations of the port: the inference fields of
-``mumpy_tpu/configs/model_config.py``, value for value, as frozen
-dataclasses.  The port reads nothing else of a configuration (no dropout,
-remat or scan options: it serves only).
+"""Model configurations of the port: the fields of
+``mumpy_tpu/configs/model_config.py`` that serving and training read, value
+for value, as frozen dataclasses.  The port has no scan options and one
+cross-view attention (the deformable one); dropout rates other than 0 are
+refused (the training kernels take drop-path only, as the JAX package's do).
 """
 
 from __future__ import annotations
@@ -45,6 +46,13 @@ class MumpyConfig:
     global_encoder: GlobalEncoderConfig
     input_token_temporal_dims: Tuple[int, ...] = (1, 1, 3)
     image_size: int = 224
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.2
+    # recompute each plain-block pair in the backward (torch.utils.checkpoint),
+    # as the JAX package remats its scanned pair bodies; "full" only
+    remat: bool = True
+    remat_policy: str = "full"
     decoder_num_classes: int = 32
     decoder_dap_k: int = 2
     decoder_features: Tuple[int, ...] = (256, 256, 256, 256, 256)
@@ -68,7 +76,7 @@ def _resolutions(image_size: int):
     return tuple((image_size // 4 // (2**s), image_size // 4 // (2**s)) for s in range(4))
 
 
-def multiswin_config(image_size: int = 224) -> MumpyConfig:
+def multiswin_config(image_size: int = 224, drop_path_rate: float = 0.2) -> MumpyConfig:
     """The published three-view architecture: temporal patchify strides
     (3, 2, 1) over a 3-frame clip, the 56/28/14/7 pyramid at 224^2."""
     res = _resolutions(image_size)
@@ -81,7 +89,7 @@ def multiswin_config(image_size: int = 224) -> MumpyConfig:
                    3072, 3, res, 3),
     )
     return MumpyConfig(views=views, global_encoder=GlobalEncoderConfig(),
-                       image_size=image_size)
+                       image_size=image_size, drop_path_rate=drop_path_rate)
 
 
 def tiny_config(image_size: int = 32) -> MumpyConfig:
@@ -98,4 +106,4 @@ def tiny_config(image_size: int = 32) -> MumpyConfig:
     )
     ge = GlobalEncoderConfig(num_heads=4, mlp_dim=64, num_layers=2, hidden_size=32)
     return MumpyConfig(views=views, global_encoder=ge, image_size=image_size,
-                       decoder_num_classes=8)
+                       drop_path_rate=0.0, decoder_num_classes=8)

@@ -6,9 +6,13 @@
 //           = sum_t x[row(m, t), :]            (a_sum > 1: the CVA ratio fold,
 //             row(m, t) = ((m / a_seg) * a_sum + t) * a_seg + m % a_seg)
 //           = x[a(m), :]                       (otherwise)
-//   v      = A @ W + bias,  W is (K, N) row-major;  v = gelu_erf(v) if gelu
+//   v      = A @ W + bias,  W is (K, N) row-major
+//   v      = gelu_erf(v)                       (act 1)
+//          = v * gelu_erf'(aux[c(m), n])       (act 2: the GELU backward, aux = f1)
 //   y[c(m), n] = T(v)                          (y != null)
 //   out[c(m), n] = T(res[c(m), n] + T(v))     (out != null; res required)
+//                = T(res[c(m), n] + s[m / d] * v)   (with a row scale s, f32,
+//                  divisor d: the stochastic-depth keep of the training kernels)
 //
 // a(m) and c(m) are optional row maps of period L (map_len): a(m) =
 // (m / L) * L + a_map[m % L], and likewise c(m) with c_map; without a map the
@@ -43,8 +47,21 @@ struct GemmArgs {
   const void* ln_g; const void* ln_b; const void* res;
   const int* a_map; const int* c_map;
   void* y; void* out;
-  int M, N, K, a_sum, a_seg, gelu, map_len;
+  const float* row_scale; const void* aux;
+  int M, N, K, a_sum, a_seg, act, map_len, scale_div;
 };
+
+enum Act : int { kActNone = 0, kActGelu = 1, kActGeluGrad = 2 };
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// d gelu_erf / dv = Phi(v) + v * phi(v)
+__device__ __forceinline__ float gelu_erf_grad(float v) {
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+         v * 0.39894228040143268f * expf(-0.5f * v * v);
+}
 
 // Row m through a row map of period len (no map: m itself).
 __device__ __forceinline__ int map_row(const int* map, int len, int m) {
@@ -99,11 +116,14 @@ __device__ __forceinline__ float b_elem(const GemmArgs& p, int k, int n) {
 __device__ __forceinline__ void epilogue(const GemmArgs& p, int m, int n, float v) {
   if (m >= p.M || n >= p.N) return;
   if (p.bias != nullptr) v += static_cast<const float*>(p.bias)[n];
-  if (p.gelu) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
   const size_t idx = (size_t)map_row(p.c_map, p.map_len, m) * p.N + n;
+  if (p.act == kActGelu) v = gelu_erf(v);
+  else if (p.act == kActGeluGrad) v *= gelu_erf_grad(static_cast<const float*>(p.aux)[idx]);
   if (p.y != nullptr) static_cast<float*>(p.y)[idx] = v;
-  if (p.out != nullptr)
-    static_cast<float*>(p.out)[idx] = static_cast<const float*>(p.res)[idx] + v;
+  if (p.out != nullptr) {
+    const float s = p.row_scale != nullptr ? p.row_scale[m / p.scale_div] : 1.f;
+    static_cast<float*>(p.out)[idx] = static_cast<const float*>(p.res)[idx] + s * v;
+  }
 }
 
 // ---- f32 SIMT main loop ----
@@ -316,20 +336,27 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
 #pragma unroll
           for (int e = 0; e < 8; ++e) f[e] += t[e];
         }
-        if (p.gelu) {
+        const size_t idx = (size_t)map_row(p.c_map, p.map_len, m) * p.N + n;
+        if (p.act == kActGelu) {
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            f[e] = 0.5f * f[e] * (1.f + erff(f[e] * 0.70710678118654752f));
+          for (int e = 0; e < 8; ++e) f[e] = gelu_erf(f[e]);
+        } else if (p.act == kActGeluGrad) {
+          unpack8(ldg8(static_cast<const __nv_bfloat16*>(p.aux) + idx), t);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) f[e] *= gelu_erf_grad(t[e]);
         }
         const uint4 yv = pack8(f);
-        const size_t idx = (size_t)map_row(p.c_map, p.map_len, m) * p.N + n;
         if (p.y != nullptr)
           *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.y) + idx) = yv;
         if (p.out != nullptr) {
-          unpack8(yv, f);
+          // without a row scale the branch is rounded to T first, as the
+          // serving kernels do; with one, res + s * v is rounded once
+          float s = 1.f;
+          if (p.row_scale != nullptr) s = p.row_scale[m / p.scale_div];
+          else unpack8(yv, f);
           unpack8(ldg8(static_cast<const __nv_bfloat16*>(p.res) + idx), t);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] += t[e];
+          for (int e = 0; e < 8; ++e) f[e] = t[e] + s * f[e];
           *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + idx) = pack8(f);
         }
       }
@@ -343,18 +370,23 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
 extern "C" int mumpy_gemm(const void* x, const void* w, const void* bias,
                           const void* ln_g, const void* ln_b, const void* res,
                           const int* a_map, const int* c_map, void* y, void* out,
-                          int M, int N, int K, int a_sum, int a_seg, int gelu,
-                          int map_len, int dtype, void* stream) {
+                          const float* row_scale, const void* aux, int M, int N, int K,
+                          int a_sum, int a_seg, int act, int map_len, int scale_div,
+                          int dtype, void* stream) {
   using namespace mumpy;
   if ((a_map != nullptr || c_map != nullptr) && (map_len <= 0 || M % map_len || a_sum > 1))
     return (int)cudaErrorInvalidValue;
-  GemmArgs p{x, w, bias, ln_g, ln_b, res, a_map, c_map, y, out,
-             M, N, K, a_sum, a_seg, gelu, map_len};
+  if ((row_scale != nullptr && scale_div <= 0) || (act == kActGeluGrad && aux == nullptr) ||
+      act < kActNone || act > kActGeluGrad)
+    return (int)cudaErrorInvalidValue;
+  GemmArgs p{x, w, bias, ln_g, ln_b, res, a_map, c_map, y, out, row_scale, aux,
+             M, N, K, a_sum, a_seg, act, map_len, scale_div};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
     const bool tc = K % 8 == 0 && N % 8 == 0 && (ln_g == nullptr || K <= kTcMaxLnK) &&
                     aligned16(x) && aligned16(w) && aligned16(bias) && aligned16(ln_g) &&
-                    aligned16(ln_b) && aligned16(res) && aligned16(y) && aligned16(out);
+                    aligned16(ln_b) && aligned16(res) && aligned16(y) && aligned16(out) &&
+                    aligned16(aux);
     if (!tc) return (int)cudaErrorInvalidValue;
     dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
     gemm_bf16_tc_kernel<<<grid, kTcThreads, 0, s>>>(p);

@@ -8,7 +8,8 @@ PyTorch; the sampling, k/v projections, attention, ratio fold and output
 projection run through the ``cva`` kernel.  Reference quirks kept: queries
 tiled ``ratio`` times in ``repeat`` order, the fold over ``ratio``
 consecutive rows, the proj_out bias added after the fold, and the tanh bound
-of the offsets.  Parameter names follow the reference state_dict
+of the offsets.  In train mode the whole CVA runs by plain autograd on its
+live parameters: the JAX package's CVA kernel is inference-only.  Parameter names follow the reference state_dict
 (``proj_q``... as 1x1 convs, ``conv_offset.{0,1,3}``).
 """
 
@@ -64,11 +65,11 @@ class SwinDAttention(KernelSite):
             nn.Conv2d(gc, 2, 1, bias=False),
         )
 
-    def build_ops(self):
+    def build_ops(self, live=False):
         return cva_operands(self.proj_q.weight, self.proj_q.bias, self.proj_k.weight,
                             self.proj_k.bias, self.proj_v.weight, self.proj_v.bias,
                             self.proj_out.weight, self.num_heads, self.n_groups,
-                            self.window)
+                            self.window, live=live)
 
     def sample_positions(self, x1):
         """Offset branch on the untiled queries: (B1, N, C) -> per-group
@@ -90,17 +91,25 @@ class SwinDAttention(KernelSite):
         pos = self.sample_positions(x1).reshape(b1, g, n, 2).permute(1, 0, 2, 3).float()
         gy = ((pos[..., 0] + 1.0) * 0.5 * (ws - 1)).contiguous()  # absolute pixels
         gx = ((pos[..., 1] + 1.0) * 0.5 * (ws - 1)).contiguous()
-        fn = cva if self.use_kernels else cva_plain
-        out = fn(x1, x2, gy, gx, self.kernel_ops())
+        if self.training:
+            out = cva_plain(x1, x2, gy, gx, self.build_ops(live=True))
+        else:
+            fn = cva if self.use_kernels else cva_plain
+            out = fn(x1, x2, gy, gx, self.kernel_ops())
         return out + self.proj_out.bias  # the bias follows the ratio fold
 
 
 class CVAModule(nn.Module):
-    """CVA residual wrapper: ``x1 + crossattn(x1, x2)``."""
+    """CVA residual wrapper: ``x1 + crossattn(x1, x2)``; in training
+    ``x1 + keep * crossattn(x1, x2)`` with ``keep`` (B1,) one stochastic-depth
+    factor per query window (the JAX package's drop-path inside CVAModule)."""
 
     def __init__(self, dim: int, num_heads: int, window: int = 7):
         super().__init__()
         self.crossattn = SwinDAttention(dim, num_heads, n_groups=3, window=window)
 
-    def forward(self, x1, x2):
-        return x1 + self.crossattn(x1, x2)
+    def forward(self, x1, x2, keep=None):
+        y = self.crossattn(x1, x2)
+        if keep is None:
+            return x1 + y
+        return x1 + keep.to(y.dtype)[:, None, None] * y

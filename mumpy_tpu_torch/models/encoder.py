@@ -1,5 +1,5 @@
 """Multilateral temporal-view pyramid encoder, counterpart of
-``mumpy_tpu/models/encoder.py`` (inference).
+``mumpy_tpu/models/encoder.py``.
 
 Module names follow the reference state_dict: ``tokenize.project{v}`` /
 ``tokenize.norm{v}``, ``layers.layers.{s}.blocks.{i}.block{v}``,
@@ -14,23 +14,39 @@ last block through ``swin_block``.  Pairs run only where the window really
 shifts (the clamp to a small grid sets the shift to 0).  The grouping is how
 the blocks execute, not how they are named.  The global ViT runs time-major,
 on a (3, B*49, C) carry, through the ``vit3`` kernel.
+
+In train mode (``model.train()``) the encoder follows the JAX package's
+training path with ``MUMPY_FUSED_TRAIN_SITES=cross,mlp``: each cross-view
+block's attention half through the ``attn_ln_train`` kernel and its tail
+through ``ln_mlp_train``; the plain blocks one by one by plain autograd, each
+(shifted, plain) pair recomputed in the backward (``torch.utils.checkpoint``,
+the JAX package's scan remat); the ViT with its tails through
+``ln_mlp_train``.  Drop-path follows the JAX schedule: ``dpr =
+linspace(0, rate, sum(view-3 depths))`` for all three views, ``dpr[base]``
+for the cross block of a stage and ``dpr[base + i]`` for its plain block i,
+``linspace(0, rate, layers)`` for the ViT.  Every keep factor is drawn from
+the ``generator`` the forward is given.
 """
 
 from __future__ import annotations
 
 from typing import List, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import MumpyConfig
 from ..ops.attn_ln import attn_ln, attn_ln_operands, attn_ln_plain
 from ..ops.dct import faf
+from ..ops.attn_ln_train import attn_ln_train, attn_ln_train_plain, attn_ln_weights
 from ..ops.ln_mlp import ln_mlp, ln_mlp_plain
+from ..ops.ln_mlp_train import ln_mlp_train, ln_mlp_train_plain, ln_mlp_weights
 from ..ops.window import partition_tokens, unpartition_tokens
 from .deformable import CVAModule
 from .swin import (KernelSite, Mlp, PatchMerging, SwinBlock, VitBlock, WindowAttention,
-                   clamp_window, mlp_tail_operands)
+                   clamp_window, drop_path_keep, mlp_tail_operands)
 
 __all__ = ["PatchEmbed3D", "CrossSwinBlock", "ThreeViewStages",
            "merge_views_along_channel_axis", "GlobalVitBody", "MumpyEncoder"]
@@ -71,7 +87,10 @@ class CrossSwinBlock(KernelSite):
     the partner stream of the next view.  The attention half runs through the
     ``attn_ln`` kernel, the tail through ``ln_mlp``.  Reference quirks kept:
     the CVA output is added in window-major order without a window reverse,
-    on top of the CVA's own residual (a double residual)."""
+    on top of the CVA's own residual (a double residual).  ``drop_path`` is
+    the block's stochastic-depth rate in training."""
+
+    drop_path = 0.0
 
     def __init__(self, dim1, dim2, input_resolution, num_heads, window_size=7,
                  mlp_ratio=4.0, last_view=False):
@@ -94,7 +113,9 @@ class CrossSwinBlock(KernelSite):
                                          a.bias().detach()[None], a.num_heads),
                 "mlp": mlp_tail_operands(self.norm2, self.mlp)}
 
-    def forward(self, x1, x2=None):
+    def forward(self, x1, x2=None, generator=None):
+        if self.training:
+            return self.train_forward(x1, x2, generator)
         h, w = self.input_resolution
         win = self.window
         b1, l1, c1 = x1.shape
@@ -109,6 +130,36 @@ class CrossSwinBlock(KernelSite):
             x2w = self.pre(partition_tokens(x2, gh2, w, win, 0))
             x1i = x1i + self.cva(x1w, x2w).reshape(b1, l1, c1)
         return (ln_mlp if self.use_kernels else ln_mlp_plain)(x1i, ops["mlp"]), out
+
+    def train_forward(self, x1, x2, generator):
+        """Training on live parameters.  Drop-path draws one keep per sample
+        for each residual branch (attention, CVA, MLP), repeated over the
+        sample's windows or tokens, sample-major; the CVA's own residual draws
+        one per window.  The partner stream ``out`` is the attention branch
+        before drop-path."""
+        h, w = self.input_resolution
+        win = self.window
+        b1, l1, c1 = x1.shape
+        gh1 = (l1 // (h * w)) * h
+        nw = (gh1 // win) * (w // win)
+        rate, dev = self.drop_path, x1.device
+        x1w = partition_tokens(x1, gh1, w, win, 0)
+        keep = drop_path_keep(b1, rate, generator, dev).repeat_interleave(nw)
+        attn = attn_ln_train if self.use_kernels else attn_ln_train_plain
+        yw, x1w = attn(x1w, self.attn.bias()[None],
+                       attn_ln_weights(self.norm1, self.attn, self.attn.num_heads), keep)
+        out = unpartition_tokens(yw, gh1, w, win, 0)
+        x1i = unpartition_tokens(x1w, gh1, w, win, 0)
+        if not self.last_view:
+            gh2 = (x2.shape[1] // (h * w)) * h
+            x2w = self.pre(partition_tokens(x2, gh2, w, win, 0))
+            cw = self.cva(x1w, x2w, drop_path_keep(b1 * nw, rate, generator, dev))
+            keep = drop_path_keep(b1, rate, generator, dev)
+            x1i = x1i + keep.to(cw.dtype)[:, None, None] * cw.reshape(b1, l1, c1)
+        keep = drop_path_keep(b1, rate, generator, dev).repeat_interleave(l1)
+        tail = ln_mlp_train if self.use_kernels else ln_mlp_train_plain
+        x1o = tail(x1i.reshape(b1 * l1, c1), ln_mlp_weights(self.norm2, self.mlp), keep)
+        return x1o.reshape(b1, l1, c1), out
 
 
 class BlockGroup(nn.Module):
@@ -142,11 +193,17 @@ class ThreeViewStages(nn.Module):
 
     def __init__(self, cfg: MumpyConfig):
         super().__init__()
+        if cfg.remat_policy != "full":
+            raise NotImplementedError(f"remat_policy {cfg.remat_policy!r}: the port "
+                                      "recomputes whole pairs ('full') only")
+        self.remat = cfg.remat
         vcfgs = cfg.views
         max_depths = vcfgs[2].depths
+        dpr = np.linspace(0.0, cfg.drop_path_rate, sum(max_depths))
         shift = vcfgs[0].window_size // 2  # every view shifts by view 1's window
         stages = []
         for s in range(4):
+            base = sum(max_depths[:s])
             res = vcfgs[0].input_resolution[s]
             groups = []
             for i in range(max_depths[s]):
@@ -164,6 +221,7 @@ class ThreeViewStages(nn.Module):
                             vc.hidden_size[s], res, vc.num_heads[s],
                             window_size=vc.window_size, shift_size=shift if i % 2 else 0,
                             temporal_dim=vc.temporal_dim)
+                    blocks[v].drop_path = float(dpr[base + i])
                 groups.append(BlockGroup(blocks))
             for v in range(1, 4):
                 pair_plain_blocks([getattr(g, f"block{v}") for g in groups[1:]
@@ -176,18 +234,21 @@ class ThreeViewStages(nn.Module):
             stages.append(Stage(groups, down))
         self.layers = nn.ModuleList(stages)
 
-    def forward(self, views: List[torch.Tensor]):
+    def forward(self, views: List[torch.Tensor], generator=None):
         x = list(views)
         stage_outputs = []
         for stage in self.layers:
             first = stage.blocks[0]
-            x[2], out2 = first.block3(x[2])
-            x[1], out1 = first.block2(x[1], out2)
-            x[0], _ = first.block1(x[0], out1)
+            x[2], out2 = first.block3(x[2], generator=generator)
+            x[1], out1 = first.block2(x[1], out2, generator=generator)
+            x[0], _ = first.block1(x[0], out1, generator=generator)
             for v in range(3):
                 plain = [getattr(g, f"block{v + 1}") for g in stage.blocks[1:]
                          if hasattr(g, f"block{v + 1}")]
-                x[v] = run_plain_blocks(plain, x[v])
+                if self.training:
+                    x[v] = train_plain_blocks(plain, x[v], generator, self.remat)
+                else:
+                    x[v] = run_plain_blocks(plain, x[v])
             stage_outputs.append(list(x))
             if hasattr(stage, "downsample"):
                 x = [getattr(stage.downsample, f"downsample{v + 1}")(x[v]) for v in range(3)]
@@ -221,6 +282,39 @@ def run_plain_blocks(blocks: List[SwinBlock], x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _pair_forward(first, second, x, ka0, km0, ka1, km1, *params):
+    """Two consecutive plain blocks on the parameters they are handed."""
+    half = len(params) // 2
+    x = first.train_forward(x, ka0, km0, *params[:half])
+    return second.train_forward(x, ka1, km1, *params[half:])
+
+
+def train_plain_blocks(blocks: List[SwinBlock], x: torch.Tensor, generator,
+                       remat: bool) -> torch.Tensor:
+    """One view's plain blocks 1..d-1 of a stage in training, as the JAX
+    package's scanned stack runs them: (block i, block i+1) pairs, each
+    recomputed in the backward when ``remat``, then a lone last block
+    without.  Keep factors are drawn before the checkpoint and the pair is
+    handed its parameters, so the recompute reads the tensors the forward
+    read (the bf16 casts of a mixed-precision step included)."""
+    b = x.shape[0]
+    keeps = [(drop_path_keep(b, blk.drop_path, generator, x.device),
+              drop_path_keep(b, blk.drop_path, generator, x.device)) for blk in blocks]
+    n_pairs = len(blocks) // 2
+    for i in range(n_pairs):
+        first, second = blocks[2 * i], blocks[2 * i + 1]
+        args = (x, *keeps[2 * i], *keeps[2 * i + 1],
+                *first.train_params(), *second.train_params())
+        if remat:
+            x = checkpoint(_pair_forward, first, second, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _pair_forward(first, second, *args)
+    for blk, keep in zip(blocks[2 * n_pairs:], keeps[2 * n_pairs:]):
+        x = blk.train_forward(x, *keep)
+    return x
+
+
 class GlobalVitBody(nn.Module):
     """The global temporal ViT's layers (``globalblocks.blocks.{i}``)."""
 
@@ -229,10 +323,17 @@ class GlobalVitBody(nn.Module):
         ge = cfg.global_encoder
         self.blocks = nn.ModuleList(
             VitBlock(ge.hidden_size, ge.num_heads, ge.mlp_dim) for _ in range(ge.num_layers))
+        self.drop_path = [float(r) for r in
+                          np.linspace(0.0, cfg.drop_path_rate, ge.num_layers)]
 
-    def forward(self, x):
-        for blk in self.blocks:
-            x = blk(x)
+    def forward(self, x, generator=None):
+        for blk, rate in zip(self.blocks, self.drop_path):
+            if self.training:  # one keep per (clip, token) row: see VitBlock.train_forward
+                r = x.shape[1]
+                x = blk.train_forward(x, drop_path_keep(r, rate, generator, x.device),
+                                      drop_path_keep(r, rate, generator, x.device))
+            else:
+                x = blk(x)
         return x
 
 
@@ -264,17 +365,17 @@ class MumpyEncoder(nn.Module):
         self.globalembedding = nn.Linear(merged_c, cfg.global_encoder.hidden_size)
         self.globalblocks = GlobalVitBody(cfg)
 
-    def forward(self, clip):
+    def forward(self, clip, generator=None):
         cfg = self.cfg
         ffinfo = faf(clip[:, 1])  # frequency branch on the centre frame
         views = [self.tokenize.embed(v, clip) for v in (1, 2, 3)]
-        x, stage_outputs = self.layers(views)
+        x, stage_outputs = self.layers(views, generator)
         merged = self.globalembedding(
             merge_views_along_channel_axis(x, cfg.input_token_temporal_dims))
         b, t, n, c = merged.shape
         # the ViT attends over time for each spatial token: time-major slabs
         # (t, B*n, C), each layer through the n = 3 vit3 kernel
-        g = self.globalblocks(merged.transpose(0, 1).reshape(t, b * n, c))
+        g = self.globalblocks(merged.transpose(0, 1).reshape(t, b * n, c), generator)
         feats = torch.cat(list(g), dim=-1)  # temporal slices concatenated along channels
         feats = feats.reshape(b, n, t * c)
         side = cfg.views[0].input_resolution[-1][0]

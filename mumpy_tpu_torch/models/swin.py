@@ -6,10 +6,16 @@ state_dict (``norm1``, ``attn.qkv``, ``attn.relative_position_bias_table``,
 ``mlp.fc1``, ...), so ``mumpy_tpu/utils/weight_port.py:port_state_dicts``
 maps this package's weights onto the JAX model unchanged.
 
-The blocks run at inference only.  Their attention and MLP go through the
-hand-written kernels of :mod:`..ops`; :class:`KernelSite` holds each block's
+In eval mode the blocks' attention and MLP go through the hand-written
+serving kernels of :mod:`..ops`; :class:`KernelSite` holds each block's
 kernel operands and the explicit choice between a kernel and its plain
-version.
+version.  In train mode (``model.train()``) every block runs on its live
+parameters, never on those operands, as the JAX package trains with
+``MUMPY_FUSED_TRAIN_SITES=cross,mlp``: the plain Swin blocks by plain
+autograd (its XLA path; their training kernel is not ported yet), the ViT
+layers' attention by plain autograd and their MLP tails through the
+``ln_mlp_train`` kernel.  Stochastic depth is a per-sample keep factor drawn
+from an explicit ``torch.Generator`` (:func:`drop_path_keep`).
 """
 
 from __future__ import annotations
@@ -18,16 +24,34 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops import attn_ln_train as attn_ln_train_ops
+from ..ops import ln_mlp_train as ln_mlp_train_ops
 from ..ops.ln_mlp import ln_mlp_operands
+from ..ops.ln_mlp_train import ln_mlp_train, ln_mlp_train_plain, ln_mlp_weights
 from ..ops.swin_block import swin_block, swin_block_operands, swin_block_plain
 from ..ops.swin_pair import shift_row_map, swin_pair, swin_pair_operands, swin_pair_plain
 from ..ops.vit3 import vit3, vit3_operands, vit3_plain
 from ..ops.window import partition_tokens, shifted_window_mask, unpartition_tokens
 
-__all__ = ["relative_position_index", "rel_pos_bias", "KernelSite", "Mlp",
-           "WindowAttention", "SwinBlock", "PatchMerging", "VitBlock"]
+__all__ = ["relative_position_index", "rel_pos_bias", "drop_path_keep", "KernelSite",
+           "Mlp", "WindowAttention", "SwinBlock", "PatchMerging", "VitBlock"]
+
+
+def drop_path_keep(n: int, rate: float, generator, device) -> torch.Tensor:
+    """(n,) f32 stochastic-depth keep factors, one per sample: 0 with
+    probability ``rate``, else 1 / (1 - rate) (the JAX package's
+    ``drop_path``, timm's ``DropPath``); all ones at rate 0.  Drawn on the
+    generator's device, so one seed gives the same draws on any path."""
+    if rate == 0.0:
+        return torch.ones(n, device=device)
+    if generator is None:
+        raise ValueError(f"drop-path at rate {rate} needs a torch.Generator")
+    keep = 1.0 - rate
+    u = torch.rand(n, generator=generator, device=generator.device)
+    return ((u < keep).float() / keep).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,6 +149,7 @@ class SwinBlock(KernelSite):
     encoder), the two run together through ``swin_pair`` (:meth:`pair_forward`)."""
 
     leads_pair = False
+    drop_path = 0.0  # stochastic-depth rate in training, set by the encoder
 
     def __init__(self, dim, input_resolution, num_heads, window_size=7, shift_size=0,
                  mlp_ratio=4.0, temporal_dim=1):
@@ -141,13 +166,18 @@ class SwinBlock(KernelSite):
         h, w = self.input_resolution
         return self.temporal_dim * h, w
 
-    def build_ops(self):
-        bias = self.attn.bias().detach()
+    def mask_bias(self, table=None):
+        """The (P, H, n, n) additive term: the relative-position bias, plus the
+        shift mask (period nW) when the window shifts."""
+        bias = rel_pos_bias(self.attn.relative_position_bias_table if table is None else table,
+                            self.window, self.window)
         if self.shift > 0:
             mask = shifted_window_mask(*self.grid(), self.window, self.shift)
-            mb = mask.to(bias)[:, None] + bias[None]  # (nW, H, n, n)
-        else:
-            mb = bias[None]  # (1, H, n, n)
+            return mask.to(bias)[:, None] + bias[None]  # (nW, H, n, n)
+        return bias[None]  # (1, H, n, n)
+
+    def build_ops(self):
+        mb = self.mask_bias().detach()
         a, m = self.attn, self.mlp
         ops = swin_block_operands(
             self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias, a.proj.weight,
@@ -155,8 +185,38 @@ class SwinBlock(KernelSite):
             m.fc2.weight, m.fc2.bias, mb, a.num_heads)
         if self.leads_pair:  # the shift's row map, in the pair's GEMMs
             ops["shift_map"] = shift_row_map(*self.grid(), self.window,
-                                             self.shift).to(bias.device)
+                                             self.shift).to(mb.device)
         return ops
+
+    def train_params(self):
+        """The live parameters the training forward reads, in a fixed order
+        (so a recomputed pair reads the tensors of its forward)."""
+        a, m = self.attn, self.mlp
+        return [self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias, a.proj.weight,
+                a.proj.bias, a.relative_position_bias_table, self.norm2.weight,
+                self.norm2.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias]
+
+    def train_forward(self, x, keep_attn, keep_mlp, *params):
+        """Training: the block by plain autograd on ``params`` (default: its
+        live parameters), as the JAX package's XLA path trains it.
+        ``keep_attn`` / ``keep_mlp`` (B,) are the two residual branches'
+        per-sample keep factors."""
+        g1, b1, wqkv, bqkv, wp, bp, table, g2, b2, w1, bb1, w2, bb2 = \
+            params or self.train_params()
+        gh, gw = self.grid()
+        b, l, c = x.shape
+        nw = (gh // self.window) * (gw // self.window)
+        wins = partition_tokens(x, gh, gw, self.window, self.shift)
+        attn = {"ln_g": g1, "ln_b": b1, "w_qkv": wqkv, "b_qkv": bqkv, "w_proj": wp,
+                "b_proj": bp, "heads": self.attn.num_heads}
+        # plain functions of the ops modules, not this module's kernel-site
+        # names (which chip_smoke.py instruments): these blocks are no site
+        _, wins = attn_ln_train_ops.attn_ln_train_plain(
+            wins, self.mask_bias(table), attn, keep_attn.repeat_interleave(nw))
+        x = unpartition_tokens(wins, gh, gw, self.window, self.shift).reshape(b * l, c)
+        mlp = {"ln_g": g2, "ln_b": b2, "w1": w1, "b1": bb1, "w2": w2, "b2": bb2}
+        x = ln_mlp_train_ops.ln_mlp_train_plain(x, mlp, keep_mlp.repeat_interleave(l))
+        return x.reshape(b, l, c)
 
     def forward(self, x):
         gh, gw = self.grid()
@@ -222,3 +282,24 @@ class VitBlock(KernelSite):
 
     def forward(self, x):
         return (vit3 if self.use_kernels else vit3_plain)(x, self.kernel_ops())
+
+    def train_forward(self, x, keep_attn, keep_mlp):
+        """Training on time-major tokens (3, R, C).  The JAX package trains the
+        ViT token-major, (R, 3, C), so drop-path draws one keep per (clip,
+        token) row r, shared by its three time slices: ``keep_attn`` /
+        ``keep_mlp`` are (R,).  The attention half runs by plain autograd (the
+        JAX package has no training kernel for it), the tail through the
+        ``ln_mlp_train`` kernel on the 3R rows."""
+        _, r, c = x.shape
+        heads = self.num_heads
+        hd = c // heads
+        h = F.layer_norm(x, (c,), self.norm1.weight, self.norm1.bias, 1e-5)
+        q, k, v = self.attn.qkv(h).reshape(3, r, 3, heads, hd).unbind(2)
+        s = torch.einsum("irhd,jrhd->rhij", q.float() * hd**-0.5, k.float())
+        o = torch.einsum("rhij,jrhd->irhd", torch.softmax(s, dim=-1), v.float())
+        y = self.attn.proj(o.reshape(3, r, c).to(x.dtype))
+        x = x + keep_attn.to(x.dtype)[None, :, None] * y
+        tail = ln_mlp_train if self.use_kernels else ln_mlp_train_plain
+        out = tail(x.reshape(3 * r, c), ln_mlp_weights(self.norm2, self.mlp),
+                   keep_mlp.repeat(3))  # time-major rows t * R + r take keep[r]
+        return out.reshape(3, r, c)

@@ -35,10 +35,14 @@ build_log = ""
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mumpy_gemm": [_P] * 10 + [_I] * 8 + [_P],
+    "mumpy_gemm": [_P] * 12 + [_I] * 9 + [_P],
     "mumpy_window_attention": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
     "mumpy_cva_sample": [_P] * 4 + [_I] * 7 + [_P],
     "mumpy_vit3_attention": [_P] * 2 + [_I] * 3 + [_F, _I, _P],
+    "mumpy_window_attention_bwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    "mumpy_ln_rows": [_P] * 6 + [_I] * 3 + [_P],
+    "mumpy_ln_bwd_rows": [_P] * 7 + [_I] * 3 + [_P],
+    "mumpy_scale_add_rows": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 
@@ -132,20 +136,33 @@ def require(t: torch.Tensor, name: str, like: torch.Tensor, shape=None,
         raise ValueError(f"{name} must be contiguous")
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a copy only where it is not), as
+    the bf16 kernels' vector loads need."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 # ---- launch helpers shared by the kernel wrappers ------------------------
 
 _GRID_Y_MAX_ROWS = 65535 * 64  # gemm grid.y limit times the 64-row tile
 _TC_MAX_LN_K = 1024  # kTcMaxLnK: LayerNorm rows the bf16 GEMM holds in registers
 
 
+ACT_NONE, ACT_GELU, ACT_GELU_GRAD = 0, 1, 2  # the GEMM epilogue's activation (csrc/gemm.cu)
+
+
 def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
-         gelu=False, a_sum=1, a_seg=1, a_map=None, c_map=None):
+         gelu=False, a_sum=1, a_seg=1, a_map=None, c_map=None, row_scale=None,
+         scale_div=1, gelu_grad_of=None):
     """Launch the tiled GEMM (csrc/gemm.cu).  ``x`` is (M*a_sum, K) (the fold
     reads ``a_sum`` rows per output row), ``w`` (K, N).  Returns ``y`` and/or
     ``out = res + y`` as requested.  ``a_map`` / ``c_map`` are int32 row maps
     of a period L dividing M: A row m (and its LayerNorm) is read from x row
     ``(m // L) * L + a_map[m % L]``, and the residual row and the stored rows
-    of y / out are ``(m // L) * L + c_map[m % L]``."""
+    of y / out are ``(m // L) * L + c_map[m % L]``.  ``row_scale`` (f32) makes
+    ``out = res + row_scale[m // scale_div] * y``; ``gelu_grad_of`` (M, N)
+    multiplies the product by GELU'(gelu_grad_of), the GELU backward."""
     k = x.shape[-1]
     m = x.numel() // k // a_sum
     n = w.shape[1]
@@ -165,13 +182,19 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
             if map_len and mp.numel() != map_len:
                 raise ValueError("a_map and c_map differ in length")
             map_len = mp.numel()
+    if row_scale is not None:
+        require(row_scale, "row scale", x, shape=(-(-m // scale_div),), dtype=torch.float32)
+    act = ACT_GELU if gelu else ACT_NONE
+    if gelu_grad_of is not None:
+        require(gelu_grad_of, "gelu input", x, shape=(m, n))
+        act = ACT_GELU_GRAD
     if map_len and (m % map_len or a_sum > 1):
         raise ValueError(f"gemm: a row map of length {map_len} needs M={m} to be a "
                          f"multiple of it and no row fold")
     if m > _GRID_Y_MAX_ROWS:
         raise ValueError(f"gemm: {m} rows exceed the grid limit {_GRID_Y_MAX_ROWS}")
     if x.dtype == torch.bfloat16:  # the tensor-core loop's limits (csrc/gemm.cu)
-        operands = (x, w, bias, ln_g, ln_b, res)
+        operands = (x, w, bias, ln_g, ln_b, res, gelu_grad_of)
         if (k % 8 or n % 8 or (ln is not None and k > _TC_MAX_LN_K)
                 or any(t is not None and t.data_ptr() % 16 for t in operands)):
             raise ValueError(f"bf16 gemm takes K and N multiples of 8, LayerNorm rows of "
@@ -183,8 +206,9 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
         require(res, "res", x, shape=(m, n))
         out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     check(lib().mumpy_gemm(ptr(x), ptr(w), ptr(bias), ptr(ln_g), ptr(ln_b), ptr(res),
-                           ptr(a_map), ptr(c_map), ptr(y), ptr(out), m, n, k, a_sum,
-                           a_seg, int(gelu), map_len, dtype_code(x), stream_of(x)), "gemm")
+                           ptr(a_map), ptr(c_map), ptr(y), ptr(out), ptr(row_scale),
+                           ptr(gelu_grad_of), m, n, k, a_sum, a_seg, act, map_len,
+                           scale_div, dtype_code(x), stream_of(x)), "gemm")
     return y, out
 
 
@@ -243,3 +267,76 @@ def vit3_attention(qkv, *, heads):
     check(lib().mumpy_vit3_attention(ptr(qkv), ptr(o), r, heads, hd, hd**-0.5,
                                      dtype_code(qkv), stream_of(qkv)), "vit3_attention")
     return o
+
+
+def window_attention_bwd(qkv, do, mb, *, r, n, heads, hd, scale, rowsum=True):
+    """Launch the window-attention backward (csrc/window_attention_bwd.cu) on
+    the packed (R*N, 3C) ``qkv`` of the forward, the head-output gradient
+    ``do`` (R*N, C) and the forward's padded (P, H, N, 64) f32 mask+bias.
+    Returns dqkv (R*N, 3C) and the mask+bias gradient (P, H, N, N) f32."""
+    c = heads * hd
+    if n > 64 or hd > 32:
+        raise ValueError(f"window attention takes n <= 64 and hd <= 32, got n={n} hd={hd}")
+    require(qkv, "qkv", qkv, shape=(r * n, 3 * c))
+    require(do, "d(head outputs)", qkv, shape=(r * n, c))
+    require(mb, "mask+bias", qkv, dtype=torch.float32)
+    if mb.dim() != 4 or mb.shape[1:] != (heads, n, 64):
+        raise ValueError(f"mask+bias must be (P, {heads}, {n}, 64), got {tuple(mb.shape)}")
+    p = mb.shape[0]
+    if r % p:
+        raise ValueError(f"{r} windows are not a multiple of the mask period {p}")
+    dqkv = torch.empty_like(qkv)
+    dmb = torch.zeros((p, heads, n, n), device=qkv.device, dtype=torch.float32)
+    # about 8 blocks per SM of an H100 (132 SMs), each summing its windows' dS
+    chunks = max(1, min(r // p, -(-1056 // (heads * p))))
+    check(lib().mumpy_window_attention_bwd(ptr(qkv), ptr(do), ptr(mb), ptr(dqkv), ptr(dmb),
+                                           r, n, heads, hd, p, chunks, scale, int(rowsum),
+                                           dtype_code(qkv), stream_of(qkv)),
+          "window_attention_bwd")
+    return dqkv, dmb
+
+
+def ln_rows(x, g, b):
+    """Launch the LayerNorm row kernel (csrc/train_rows.cu) on ``x`` (rows, C):
+    returns h = LN(x) in x's dtype and the f32 row statistics mu, rstd."""
+    rows, c = x.shape
+    require(x, "x", x)
+    require(g, "ln scale", x, shape=(c,))
+    require(b, "ln bias", x, shape=(c,))
+    h = torch.empty_like(x)
+    mu = torch.empty(rows, device=x.device, dtype=torch.float32)
+    rstd = torch.empty_like(mu)
+    check(lib().mumpy_ln_rows(ptr(x), ptr(g), ptr(b), ptr(h), ptr(mu), ptr(rstd), rows, c,
+                              dtype_code(x), stream_of(x)), "ln_rows")
+    return h, mu, rstd
+
+
+def ln_bwd_rows(x, mu, rstd, g, dh, dres=None):
+    """Launch the LayerNorm backward row kernel: dx = dres + LN'(x)^T dh."""
+    rows, c = x.shape
+    require(x, "x", x)
+    for t, name in ((mu, "mu"), (rstd, "rstd")):
+        require(t, name, x, shape=(rows,), dtype=torch.float32)
+    require(g, "ln scale", x, shape=(c,))
+    require(dh, "dh", x, shape=(rows, c))
+    if dres is not None:
+        require(dres, "dres", x, shape=(rows, c))
+    dx = torch.empty_like(x)
+    check(lib().mumpy_ln_bwd_rows(ptr(x), ptr(mu), ptr(rstd), ptr(g), ptr(dh), ptr(dres),
+                                  ptr(dx), rows, c, dtype_code(x), stream_of(x)),
+          "ln_bwd_rows")
+    return dx
+
+
+def scale_add_rows(a, b, s, div=1):
+    """Launch the row scale-add kernel: out = a + s[row // div] * b (a may be
+    None); ``s`` is f32."""
+    rows, c = b.shape
+    require(b, "b", b)
+    if a is not None:
+        require(a, "a", b, shape=(rows, c))
+    require(s, "row scale", b, shape=(-(-rows // div),), dtype=torch.float32)
+    out = torch.empty_like(b)
+    check(lib().mumpy_scale_add_rows(ptr(a), ptr(b), ptr(s), ptr(out), rows, c, div,
+                                     dtype_code(b), stream_of(b)), "scale_add_rows")
+    return out

@@ -31,14 +31,16 @@ from .grid_sample import _axis_weights
 __all__ = ["cva", "cva_plain", "cva_operands", "sample_plain"]
 
 
-def cva_operands(w_q, b_q, w_k, b_k, w_v, b_v, w_proj, heads, groups, ws):
+def cva_operands(w_q, b_q, w_k, b_k, w_v, b_v, w_proj, heads, groups, ws, live=False):
     """Kernel operands from the 1x1-conv weights ((C, C) after squeezing the
     kernel dims; torch (out, in) layout).  Weights are stored (in, out), with
-    k and v side by side."""
-    t = lambda w: w.detach().reshape(w.shape[0], -1).t()
-    return {"w_q": t(w_q).contiguous(), "b_q": b_q.detach().contiguous(),
+    k and v side by side.  ``live=True`` keeps them in the autograd graph (the
+    plain version's training operands); otherwise they are detached."""
+    d = (lambda w: w) if live else (lambda w: w.detach())
+    t = lambda w: d(w).reshape(w.shape[0], -1).t()
+    return {"w_q": t(w_q).contiguous(), "b_q": d(b_q).contiguous(),
             "w_kv": torch.cat([t(w_k), t(w_v)], dim=1).contiguous(),
-            "b_kv": torch.cat([b_k.detach(), b_v.detach()]).contiguous(),
+            "b_kv": torch.cat([d(b_k), d(b_v)]).contiguous(),
             "w_proj": t(w_proj).contiguous(), "heads": heads, "groups": groups,
             "ws": ws}
 

@@ -13,7 +13,8 @@ import torch
 
 from ..models.swin import KernelSite
 
-__all__ = ["set_kernel_path", "prepare_for_inference", "make_serving_forward"]
+__all__ = ["set_kernel_path", "prepare_for_inference", "release_inference_operands",
+           "make_serving_forward"]
 
 
 def set_kernel_path(model: torch.nn.Module, use_kernels: bool) -> None:
@@ -36,6 +37,15 @@ def prepare_for_inference(model: torch.nn.Module) -> torch.nn.Module:
             if isinstance(m, KernelSite):
                 m.prepare()
     return model
+
+
+def release_inference_operands(model: torch.nn.Module) -> None:
+    """Drop every kernel site's operands (a later eval forward needs
+    :func:`prepare_for_inference` again); the trainer's val pass builds them
+    from the parameters of the moment and frees them after."""
+    for m in model.modules():
+        if isinstance(m, KernelSite):
+            m.__dict__.pop("_ops", None)
 
 
 def make_serving_forward(model: torch.nn.Module, device, dtype=torch.float32,

@@ -184,3 +184,38 @@ def random_state_dict(model: torch.nn.Module, seed: int, std: float = 0.02,
             a += 1.0
         out[key] = torch.from_numpy(a)
     return out
+
+
+def load_pretrained(model: torch.nn.Module, path: str, min_matched_frac: float = 0.5) -> int:
+    """strict=False warm start of a :class:`..models.mumpy.Mumpy` from a
+    torch checkpoint of the reference (the counterpart of
+    ``mumpy_tpu/utils/weight_port.py:load_pretrained``): a raw encoder
+    state_dict, an {"encoder", "decoder"} pair, or either nested under
+    "state_dict" / "model".  The port's modules carry the reference's
+    state_dict names, so keys copy over by name; ``module.`` prefixes are
+    stripped and the recomputed buffers (``relative_position_index``,
+    ``attn_mask``) skipped.  Raises when fewer than ``min_matched_frac`` of
+    the checkpoint's parameters match by name and shape.  Returns the number
+    copied."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(blob, dict) and "encoder" in blob and "decoder" in blob:
+        parts = {"encoder": blob["encoder"], "decoder": blob["decoder"]}
+    else:
+        sd = blob.get("state_dict", blob.get("model", blob)) if isinstance(blob, dict) else blob
+        parts = {"encoder": sd, "decoder": {}}
+    own = model.state_dict()
+    new, mappable = {}, 0
+    for prefix, sd in parts.items():
+        for key, value in sd.items():
+            key = key[len("module."):] if key.startswith("module.") else key
+            if key.endswith(("relative_position_index", "attn_mask")):
+                continue
+            mappable += 1
+            name = f"{prefix}.{key}"
+            if name in own and tuple(own[name].shape) == tuple(value.shape):
+                new[name] = torch.as_tensor(value).to(own[name].dtype)
+    if mappable and len(new) < min_matched_frac * mappable:
+        raise ValueError(f"load_pretrained({path!r}): only {len(new)} of {mappable} "
+                         "parameters match the model by name and shape")
+    model.load_state_dict({**own, **new})
+    return len(new)

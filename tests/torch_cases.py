@@ -156,6 +156,83 @@ def vit3_case(seed=31, r=VIT3_R, c=VIT3_C, heads=VIT3_HEADS, m=None):
     return w, d(3, r, c, std=1.0), vit3_ops(w, heads)
 
 
+# ---- training-kernel cases (attn_ln_train, ln_mlp_train) ----
+
+DROP = 0.2  # a drop-path rate: keep factors are 0 or 1 / (1 - DROP)
+
+
+def keep_vector(n, drop=DROP):
+    """(n,) f32 keep factors cycling through 0, 1 / (1 - drop) and 1, so that
+    every kind of row occurs (drop-path off, on and dropped)."""
+    return torch.tensor([0.0, 1.0 / (1.0 - drop), 1.0] * (n // 3 + 1))[:n]
+
+
+def attn_train_weights(w, heads=HEADS):
+    """torch-layout live parameters of ``attn_ln_train`` from JAX-layout weights."""
+    return {"ln_g": t(w["ln_scale"]), "ln_b": t(w["ln_bias"]),
+            "w_qkv": t(w["qkv_kernel"], True), "b_qkv": t(w["qkv_bias"]),
+            "w_proj": t(w["proj_kernel"], True), "b_proj": t(w["proj_bias"]), "heads": heads}
+
+
+def mlp_train_weights(w):
+    """torch-layout live parameters of ``ln_mlp_train`` from JAX-layout weights."""
+    return {"ln_g": t(w["ln_scale"]), "ln_b": t(w["ln_bias"]), "w1": t(w["w1"], True),
+            "b1": t(w["b1"]), "w2": t(w["w2"], True), "b2": t(w["b2"])}
+
+
+def attn_train_case(seed, shifted, c=C, heads=HEADS, win=WIN, grid=GRID):
+    """(x, mb, params, keep, (dy, dout)) for ``attn_ln_train``: seeded
+    windows, a mask+bias of period 1 or nW, keep factors per window and the
+    two cotangents."""
+    d = Draw(seed)
+    w, mb, x = attn_weights(d, c), mask_bias(d, shifted, heads, win, grid), windows(d, c, win, grid)
+    cots = (t(d(*x.shape, std=1.0)), t(d(*x.shape, std=1.0)))
+    return t(x), torch.from_numpy(mb), attn_train_weights(w, heads), keep_vector(x.shape[0]), cots
+
+
+def mlp_train_case(seed, rows, c=C, m=MLP):
+    """(x, params, keep, (dy,)) for ``ln_mlp_train`` on ``rows`` rows."""
+    d = Draw(seed)
+    w = mlp_weights(d, c, m)
+    return (t(d(rows, c, std=1.0)), mlp_train_weights(w), keep_vector(rows),
+            (t(d(rows, c, std=1.0)),))
+
+
+def rounded(obj, dtype):
+    """Floating-point tensors (in dicts too) rounded to ``dtype`` and back to
+    f32: the inputs of the f32 plain version a low-precision kernel is held
+    against."""
+    if isinstance(obj, dict):
+        return {k: rounded(v, dtype) for k, v in obj.items()}
+    if torch.is_tensor(obj) and obj.is_floating_point():
+        return obj.to(dtype).float()
+    return obj
+
+
+def run_with_grads(fn, args, cots, dtype=torch.float32):
+    """Call ``fn(*args)`` on copies of its floating-point tensors cast to
+    ``dtype`` (those in a params dict included; keep factors stay f32), back-
+    propagate ``cots`` and return (outputs, {name: gradient}) in f32."""
+    leaves = {}
+
+    def prep(obj, name):
+        if isinstance(obj, dict):
+            return {k: prep(v, f"{name}.{k}" if name else k) for k, v in obj.items()}
+        if torch.is_tensor(obj) and obj.is_floating_point() and name != "keep":
+            leaf = obj.detach().to(dtype).requires_grad_()
+            leaves[name] = leaf
+            return leaf
+        return obj
+
+    names = ("x", "mb", "", "keep") if len(args) == 4 else ("x", "", "keep")
+    inputs = [prep(a, n) for a, n in zip(args, names)]
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, [c.to(dtype) for c in cots])
+    return ([o.detach().float() for o in outs],
+            {k: v.grad.float() for k, v in leaves.items()})
+
+
 # ---- fixtures ----
 
 @pytest.fixture(autouse=True)
@@ -214,11 +291,12 @@ def _view(p, n, dtype):
 
 
 class ModelLib:
-    """What csrc/gemm.cu, window_attention.cu, cva_sample.cu and
-    vit3_attention.cu compute, on the raw buffers the wrappers pass."""
+    """What csrc/gemm.cu, window_attention.cu, window_attention_bwd.cu,
+    train_rows.cu, cva_sample.cu and vit3_attention.cu compute, on the raw
+    buffers the wrappers pass."""
 
-    def mumpy_gemm(self, x, w, bias, g, b, res, a_map, c_map, y, out, M, N, K, a_sum,
-                   a_seg, gelu, map_len, dtype, stream):
+    def mumpy_gemm(self, x, w, bias, g, b, res, a_map, c_map, y, out, row_scale, aux, M, N,
+                   K, a_sum, a_seg, act, map_len, scale_div, dtype, stream):
         dt = DTYPES[dtype]
         rows = torch.arange(M)
 
@@ -240,13 +318,79 @@ class ModelLib:
         v = A @ _view(w, K * N, dt).float().reshape(K, N)
         if bias is not None:
             v = v + _view(bias, N, dt).float()
-        yv = (F.gelu(v) if gelu else v).to(dt)
         c_rows = mapped(c_map)
+        if act == 1:
+            v = F.gelu(v)
+        elif act == 2:  # the GELU backward: times gelu'(aux)
+            f1 = _view(aux, M * N, dt).reshape(M, N)[c_rows].float()
+            v = v * (0.5 * (1 + torch.erf(f1 * 0.5**0.5))
+                     + f1 * torch.exp(-0.5 * f1 * f1) * (2 * torch.pi) ** -0.5)
+        yv = v.to(dt)
         if y is not None:
             _view(y, M * N, dt).reshape(M, N)[c_rows] = yv
         if out is not None:
             resid = _view(res, M * N, dt).reshape(M, N)[c_rows].float()
-            _view(out, M * N, dt).reshape(M, N)[c_rows] = (resid + yv.float()).to(dt)
+            if row_scale is None:
+                o = resid + yv.float()
+            else:  # res + s * v, rounded once
+                s = _view(row_scale, -(-M // scale_div), torch.float32)
+                o = resid + s[rows // scale_div, None] * v
+            _view(out, M * N, dt).reshape(M, N)[c_rows] = o.to(dt)
+        return 0
+
+    def mumpy_window_attention_bwd(self, qkv, do, mb, dqkv, dmb, R, N, H, hd, P, chunks,
+                                   scale, rowsum, dtype, stream):
+        dt = DTYPES[dtype]
+        c = H * hd
+        q, k, v = _view(qkv, R * N * 3 * c, dt).reshape(R, N, 3, H, hd).float().unbind(2)
+        g = _view(do, R * N * c, dt).reshape(R, N, H, hd).float()
+        rows = torch.arange(R)
+        s = torch.einsum("rihd,rjhd->rhij", q, k) * scale + _view(
+            mb, P * H * N * 64, torch.float32).reshape(P, H, N, 64)[rows % P][..., :N]
+        p = torch.softmax(s, -1)
+        dp = torch.einsum("rihd,rjhd->rhij", g, v)
+        dsum = (p * dp).sum(-1, keepdim=True) if rowsum else 0.0
+        ds = p * (dp - dsum)
+        gs = (ds * scale).to(dt).float()
+        dq = torch.einsum("rhij,rjhd->rihd", gs, k)
+        dk = torch.einsum("rhij,rihd->rjhd", gs, q)
+        dv = torch.einsum("rhij,rihd->rjhd", p.to(dt).float(), g)
+        out = torch.stack([dq, dk, dv], 2).reshape(-1)
+        _view(dqkv, R * N * 3 * c, dt).copy_(out.to(dt))
+        dm = _view(dmb, P * H * N * N, torch.float32).reshape(P, H, N, N)
+        dm += ds.reshape(R // P, P, H, N, N).sum(0)
+        return 0
+
+    def mumpy_ln_rows(self, x, g, b, h, mu, rstd, rows, C, dtype, stream):
+        dt = DTYPES[dtype]
+        X = _view(x, rows * C, dt).reshape(rows, C).float()
+        m = X.mean(-1)
+        rs = torch.rsqrt(((X - m[:, None]) ** 2).mean(-1) + 1e-5)
+        H = (X - m[:, None]) * rs[:, None] * _view(g, C, dt).float() + _view(b, C, dt).float()
+        _view(h, rows * C, dt).copy_(H.reshape(-1).to(dt))
+        _view(mu, rows, torch.float32).copy_(m)
+        _view(rstd, rows, torch.float32).copy_(rs)
+        return 0
+
+    def mumpy_ln_bwd_rows(self, x, mu, rstd, g, dh, dres, dx, rows, C, dtype, stream):
+        dt = DTYPES[dtype]
+        X = _view(x, rows * C, dt).reshape(rows, C).float()
+        m, rs = (_view(t, rows, torch.float32)[:, None] for t in (mu, rstd))
+        xh = (X - m) * rs
+        dxh = _view(dh, rows * C, dt).reshape(rows, C).float() * _view(g, C, dt).float()
+        v = (dxh - dxh.mean(-1, keepdim=True) - xh * (dxh * xh).mean(-1, keepdim=True)) * rs
+        if dres is not None:
+            v = v + _view(dres, rows * C, dt).reshape(rows, C).float()
+        _view(dx, rows * C, dt).copy_(v.reshape(-1).to(dt))
+        return 0
+
+    def mumpy_scale_add_rows(self, a, b, s, out, rows, C, div, dtype, stream):
+        dt = DTYPES[dtype]
+        sr = _view(s, -(-rows // div), torch.float32)[torch.arange(rows) // div, None]
+        v = sr * _view(b, rows * C, dt).reshape(rows, C).float()
+        if a is not None:
+            v = v + _view(a, rows * C, dt).reshape(rows, C).float()
+        _view(out, rows * C, dt).copy_(v.reshape(-1).to(dt))
         return 0
 
     def mumpy_window_attention(self, q, k, v, o, mb, R, N, H, hd, q_mod, ldq, ldk, ldv,
