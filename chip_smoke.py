@@ -40,18 +40,20 @@ Training, the flagship at the DVI recipe's 12 clips per step (6 clips x 2
 inpainting streams, SGD) on seeded synthetic clips and masks, with
 drop-path 0.2:
 
-7. capture the input of every distinct instance of the two training kernels
-   (``attn_ln_train``, ``ln_mlp_train``) in one plain-path training forward,
-   and hold each kernel's forward and backward launches against its plain
-   version's autograd on seeded cotangents, in f32 and bf16: out, y, dx,
-   every weight gradient and d(mask+bias), by the largest error (f32
-   1e-4 * max(1, max|ref|), bf16 2e-2) and by branch RMS error (f32 1e-5,
-   bf16 2e-2; the branch of ``out`` is the keep-scaled ``out - x``, of dx
-   ``dx`` less the residual's cotangent).  Planted faults on the bf16
-   instances must each be caught: the mask+bias zeroed, the softmax
-   backward's rowsum term dropped, gelu' replaced by 1, and the keep factor
-   ignored, on seeded keep factors 0, 1 / (1 - 0.2) and 1 (the captured
-   ones are 1 or within 2% of it in the early stages);
+7. capture the input of every distinct instance of the three training
+   kernels (``swin_block_train``, ``attn_ln_train``, ``ln_mlp_train``) in one
+   plain-path training forward, and hold each kernel's forward and backward
+   launches against its plain version's autograd on seeded cotangents, in
+   f32 and bf16: out, y, dx, every weight gradient and d(mask+bias), by the
+   largest error (f32 1e-4 * max(1, max|ref|), bf16 2e-2) and by branch RMS
+   error (f32 1e-5, bf16 2e-2; the branch of ``out`` is the keep-scaled
+   ``out - x``, of dx ``dx`` less the residual's cotangent).  Planted faults
+   on the bf16 instances must each be caught: the mask+bias zeroed, the
+   softmax backward's rowsum term dropped, gelu' replaced by 1, the keep
+   factor (the block's keep2) ignored, and on the shifted blocks the shift
+   mask dropped from the mask+bias, on seeded keep factors 0, 1 / (1 - 0.2)
+   and 1 (the captured ones are 1 or within 2% of it in the early stages;
+   the block kernel runs every check on the seeded keeps);
 8. one training step on the kernel path from identical weights and keep
    draws as the plain path: f32 loss within 1e-4 relative; every
    parameter's f32 gradient against the plain path's in f64, by relative L2
@@ -61,17 +63,20 @@ drop-path 0.2:
    the CVA's key biases), which is held to that share and listed; bf16
    gradients against the f32 plain ones, all parameters together, the
    kernel path within twice the plain path's error;
-9. the launch counts of one ``train_step``: attn_ln_train 12 forward + 12
-   backward, ln_mlp_train 24 + 24, the serving kernels 0;
+9. the launch counts of one ``train_step``: swin_block_train 48 forward + 48
+   backward, attn_ln_train 12 + 12, ln_mlp_train 24 + 24, the serving
+   kernels 0;
 10. four ``train_step``s on one batch in f32 and in bf16 from the same
    weights: the loss finite and falling; then step ms by CUDA events of both
    paths (plain, kernel, kernel, plain), peak memory, one step of each path
    under ``torch.profiler`` (the kernels' device time against the untraced
    step's ms: the device-idle share; launches; the longest kernels), and
    each training kernel's ms per step (its ``Function``'s forward and
-   autograd backward, in bf16 beside its plain version's, and in f32)
-   against its bound (bf16: 989 TFLOP/s; f32: 67 TFLOP/s, the H100 SXM's
-   non-tensor f32 peak);
+   autograd backward, in bf16 beside its plain version's and beside its
+   forward and backward launches called directly, with no autograd, and in
+   f32) against its bound (bf16: 989 TFLOP/s; f32: 67 TFLOP/s, the H100
+   SXM's non-tensor f32 peak; the work of the forward, the input gradients
+   and the weight gradients, not the backward's recompute);
 11. ``python -m mumpy_tpu_torch.train``'s ``main`` for one epoch on
    synthetic 224^2 PNG clips (two streams, 12 clips per step, two steps, a
    val pass and the checkpoints), then ``mumpy_tpu_torch.serve``'s ``main``
@@ -122,11 +127,17 @@ RESIDUAL_KERNELS = ("swin_block", "swin_pair", "ln_mlp", "vit3")  # out = x + br
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16 tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM: f32 outside the tensor cores
 TRAIN_KERNEL_INFO = {  # name -> (CUDA sources, TPU kernel it replaces)
+    "swin_block_train": (["gemm.cu", "window_attention.cu", "window_attention_bwd.cu",
+                          "train_rows.cu", "wgrad.cu"],
+                         "mumpy_tpu/ops/pallas/swin_block_vjp.py:587"),
     "attn_ln_train": (["gemm.cu", "window_attention.cu", "window_attention_bwd.cu",
-                       "train_rows.cu"], "mumpy_tpu/ops/pallas/attn_ln_vjp.py:188"),
-    "ln_mlp_train": (["gemm.cu", "train_rows.cu"], "mumpy_tpu/ops/pallas/ln_mlp_vjp.py:119"),
+                       "train_rows.cu", "wgrad.cu"], "mumpy_tpu/ops/pallas/attn_ln_vjp.py:188"),
+    "ln_mlp_train": (["gemm.cu", "train_rows.cu", "wgrad.cu"],
+                     "mumpy_tpu/ops/pallas/ln_mlp_vjp.py:119"),
 }
-EXPECTED_TRAIN_LAUNCHES = {"attn_ln_train": (12, 12), "ln_mlp_train": (24, 24)}
+EXPECTED_TRAIN_LAUNCHES = {"swin_block_train": (48, 48), "attn_ln_train": (12, 12),
+                           "ln_mlp_train": (24, 24)}
+KEEPS = {"swin_block_train": 2, "attn_ln_train": 1, "ln_mlp_train": 1}  # trailing keep args
 TRAIN_CLIPS = 6  # per inpainting stream; two streams: 12 clips per step (DVI recipe)
 LOSS_TOL, GRAD_TOL = 1e-4, 1e-3  # kernel vs plain training step, f32
 ZERO_GRAD = 1e-5  # a gradient below this share of the whole one is zero to rounding
@@ -346,7 +357,7 @@ class Capture:
             setattr(mod, attr, fn)
 
 
-# ---- training: the two training kernels and the training main path ----
+# ---- training: the three training kernels and the training main path ----
 
 class TrainCapture:
     """Record the arguments of every distinct training-kernel instance
@@ -357,12 +368,12 @@ class TrainCapture:
     def __init__(self):
         from mumpy_tpu_torch.models import encoder, swin
 
-        self.sites = [(encoder, "attn_ln_train"), (encoder, "ln_mlp_train"),
-                      (swin, "ln_mlp_train")]
+        self.sites = [(swin, "swin_block_train"), (encoder, "attn_ln_train"),
+                      (encoder, "ln_mlp_train"), (swin, "ln_mlp_train")]
         self.instances = {}
 
     def add(self, name, args):
-        key = (name, tuple(args[0].shape), tuple(args[1].shape) if len(args) == 4 else None)
+        key = (name, tuple(args[0].shape), None if name == "ln_mlp_train" else tuple(args[1].shape))
         new = [tuple({k: (v.detach().clone() if torch.is_tensor(v) else v)
                       for k, v in a.items()} if isinstance(a, dict) else a.detach().clone()
                      for a in args), 0]
@@ -386,30 +397,61 @@ class TrainCapture:
             setattr(mod, attr, fn)
 
 
-def cast_train_args(args, dtype):
+def cast_train_args(name, args, dtype):
     """Activations, mask+bias and weights in ``dtype``; keep factors f32."""
     out = []
-    for a in args[:-1]:
+    for a in args[:-KEEPS[name]]:
         if isinstance(a, dict):
             out.append({k: v.to(dtype) if torch.is_tensor(v) else v for k, v in a.items()})
         else:
             out.append(a.to(dtype))
-    return tuple(out) + (args[-1].float(),)
+    return tuple(out) + tuple(k.float() for k in args[-KEEPS[name]:])
 
 
-def train_kernel_run(name, args, cots, fault=None):
+def seeded_keeps(name, args):
+    """``args`` with seeded keep factors cycling through 0, 1 / (1 - 0.2) and
+    1 (the block's two in different cycles), on the device of the captured
+    ones."""
+    import torch_cases as tc
+
+    r = args[-1].numel()
+    kv = (tc.keep_vector(r), tc.keep_vector(r + 1)[1:])[:KEEPS[name]]
+    return args[:-KEEPS[name]] + tuple(k.to(args[-1].device) for k in kv)
+
+
+def drop_shift_mask(mb):
+    """The shifted block's (nW, H, n, n) mask+bias with the shift mask
+    dropped: window 0 holds no wrapped rows, so its slot is the bias alone."""
+    return mb[:1].expand_as(mb).contiguous()
+
+
+def train_kernel_run(name, args, cots, fault=None, raw=False):
     """The kernel's forward and backward launches on ``args`` (not counted),
-    outputs and gradients by name.  ``fault`` plants one of the checks'
-    faults."""
+    outputs and gradients by name in f32, or nothing with ``raw`` (for
+    timing).  ``fault`` plants one of the checks' faults."""
     from mumpy_tpu_torch.ops import attn_ln_train as alt
     from mumpy_tpu_torch.ops import ln_mlp_train as lmt
+    from mumpy_tpu_torch.ops import swin_block_train as sbt
     from mumpy_tpu_torch.ops.attn_ln import pad_mask_bias
 
     keep = args[-1]
     if fault == "keep ignored":
         keep = torch.ones_like(keep)
     with torch.no_grad():
-        if name == "attn_ln_train":
+        if name == "swin_block_train":
+            x, mb, p, keep1, _ = args
+            if fault == "shift mask dropped":
+                mb = drop_shift_mask(mb)
+            out = sbt.launch_swin_block_train(x, mb, p, keep1, keep)
+            w = [p[k] for k in sbt._WEIGHTS]
+            g = sbt.launch_swin_block_train_bwd(
+                x, pad_mask_bias(mb), keep1, keep, *w,
+                *(p[k].t().contiguous() for k in ("w_qkv", "w_proj", "w1")), p["heads"],
+                *cots, rowsum=fault != "rowsum dropped", gelu_grad=fault != "gelu' = 1")
+            names = ("x", "mb", None, None, *sbt._WEIGHTS)
+            res = {"out": out}
+            g = (g[0], g[1][..., : x.shape[1]], *g[2:])
+        elif name == "attn_ln_train":
             x, mb, p, _ = args
             if fault == "mask+bias zeroed":
                 mb = torch.zeros_like(mb)
@@ -429,6 +471,8 @@ def train_kernel_run(name, args, cots, fault=None):
                 p["w1"].t().contiguous(), *cots, gelu_grad=fault != "gelu' = 1")
             names = ("x", None, "ln_g", "ln_b", "w1", "b1", "w2", "b2")
             res = {"out": out}
+    if raw:
+        return None
     res.update({k: v for k, v in zip(names, g) if k is not None})
     return {k: v.float() for k, v in res.items()}
 
@@ -437,8 +481,10 @@ def train_plain_run(name, args, cots, tc):
     """The plain version's outputs and autograd gradients, f32."""
     from mumpy_tpu_torch.ops.attn_ln_train import attn_ln_train_plain
     from mumpy_tpu_torch.ops.ln_mlp_train import ln_mlp_train_plain
+    from mumpy_tpu_torch.ops.swin_block_train import swin_block_train_plain
 
-    plain = attn_ln_train_plain if name == "attn_ln_train" else ln_mlp_train_plain
+    plain = {"swin_block_train": swin_block_train_plain, "attn_ln_train": attn_ln_train_plain,
+             "ln_mlp_train": ln_mlp_train_plain}[name]
     outs, grads = tc.run_with_grads(plain, args, cots)
     return {**dict(zip(("y", "out") if len(outs) == 2 else ("out",), outs)), **grads}
 
@@ -459,14 +505,23 @@ def train_errors(got, ref, x, dres):
 
 def train_work(name, args):
     """(flops, bytes) of one forward + backward: the products and attention of
-    the contract and their gradients, each input (weights, cotangents
-    included) read once and each output and gradient written once."""
-    x, p = args[0], args[-2]
+    the contract and their gradients (not the backward's recompute, which
+    the function needs only because it saves no activations), each input
+    (weights, cotangents included) read once and each output and gradient
+    written once."""
+    x, p = args[0], args[-1 - KEEPS[name]]
     c = x.shape[-1]
     rows = x.numel() // c
     params = sum(v.numel() * v.element_size() for v in p.values() if torch.is_tensor(v))
     act = x.numel() * x.element_size()
-    if name == "attn_ln_train":
+    if name == "swin_block_train":
+        # per row: forward 8C^2 + 4Cm + 4NC; the input gradients
+        # 8C^2 + 4Cm + 8NC; the weight gradients 8C^2 + 4Cm
+        n, m = x.shape[1], p["w1"].shape[0]
+        mb = args[1].numel() * 4
+        flops = rows * (24 * c * c + 12 * c * m + 12 * n * c)
+        nbytes = 2 * act + mb + 2 * act + 2 * params + mb  # x, dy; y, dx
+    elif name == "attn_ln_train":
         n = x.shape[1]
         mb = args[1].numel() * 4
         flops = 24 * rows * c * c + 12 * rows * n * c
@@ -475,11 +530,11 @@ def train_work(name, args):
         m = p["w1"].shape[0]
         flops = 12 * rows * c * m
         nbytes = 2 * act + 2 * act + 2 * params  # x, dy; out, dx
-    return flops, nbytes + args[-1].numel() * 4
+    return flops, nbytes + KEEPS[name] * args[-1].numel() * 4
 
 
 def training_phases(cfg, dev, smi, rng):
-    """Phases 7-11 on the flagship ``cfg``.  Returns the two training kernels'
+    """Phases 7-11 on the flagship ``cfg``.  Returns the three training kernels'
     result entries, or None when a phase failed."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import torch_cases as tc
@@ -487,12 +542,14 @@ def training_phases(cfg, dev, smi, rng):
     from mumpy_tpu_torch.ops import attn_ln, cva, ln_mlp, swin_block, swin_pair, vit3
     from mumpy_tpu_torch.ops.attn_ln_train import attn_ln_train
     from mumpy_tpu_torch.ops.ln_mlp_train import ln_mlp_train
+    from mumpy_tpu_torch.ops.swin_block_train import swin_block_train
     from mumpy_tpu_torch.train import __main__ as train_cli
     from mumpy_tpu_torch.train.optim import OptimConfig, Optimizer
     from mumpy_tpu_torch.train.trainer import TrainState, _loss_for_batch, train_step
     from mumpy_tpu_torch.utils.serving import set_kernel_path
 
-    train_kernels = {"attn_ln_train": attn_ln_train, "ln_mlp_train": ln_mlp_train}
+    train_kernels = {"swin_block_train": swin_block_train, "attn_ln_train": attn_ln_train,
+                     "ln_mlp_train": ln_mlp_train}
     serving_kernels = (swin_block.swin_block, swin_pair.swin_pair, attn_ln.attn_ln,
                        ln_mlp.ln_mlp, cva.cva, vit3.vit3)
     b, size = 2 * TRAIN_CLIPS, cfg.image_size
@@ -515,18 +572,22 @@ def training_phases(cfg, dev, smi, rng):
         model(clip.to(dev), generator=generator(SEED))
     ok = True
     errs = {k: 0.0 for k in train_kernels}
-    # per step: ms bf16, plain ms bf16, bound bf16, its ops and bytes parts, ms f32, bound f32
-    times = {k: [0.0] * 7 for k in train_kernels}
+    # per step: ms bf16, plain ms bf16, bound bf16, its ops and bytes parts, ms f32,
+    # bound f32, ms bf16 by direct launches (no autograd)
+    times = {k: [0.0] * 8 for k in train_kernels}
     for (name, xshape, mbshape), (args, count) in cap.instances.items():
+        keep = args[-1]
+        if name == "swin_block_train":  # every check on seeded keeps 0, 1.25, 1
+            args = seeded_keeps(name, args)
         crng = np.random.default_rng(SEED + len(xshape))
         cots = tuple(torch.from_numpy(crng.standard_normal(xshape, dtype=np.float32)).to(dev)
                      for _ in range(2 if name == "attn_ln_train" else 1))
         x = args[0].float()
-        dres = cots[-1]  # dout for attn_ln_train, dy for ln_mlp_train
+        dres = cots[-1]  # dout for attn_ln_train, dy for the others
         got32, ref32 = train_kernel_run(name, args, cots), train_plain_run(name, args, cots, tc)
-        args16 = cast_train_args(args, torch.bfloat16)
+        args16 = cast_train_args(name, args, torch.bfloat16)
         cots16 = tuple(c.to(torch.bfloat16) for c in cots)
-        ref16 = train_plain_run(name, cast_train_args(args16, torch.float32),
+        ref16 = train_plain_run(name, cast_train_args(name, args16, torch.float32),
                                 tuple(c.float() for c in cots16), tc)
         got16 = train_kernel_run(name, args16, cots16)
         torch.cuda.synchronize()
@@ -535,8 +596,11 @@ def training_phases(cfg, dev, smi, rng):
         errs[name] = max(errs[name], max(rel_err(got32[k], r)[0] for k, r in ref32.items()))
         good = m32 <= F32_TOL and b32 <= F32_BRANCH_TOL and m16 <= BF16_TOL and \
             b16 <= BF16_BRANCH_TOL
-        faults = ["mask+bias zeroed", "rowsum dropped"] if name == "attn_ln_train" else \
-            ["gelu' = 1"]
+        faults = {"swin_block_train": ["rowsum dropped", "gelu' = 1"],
+                  "attn_ln_train": ["mask+bias zeroed", "rowsum dropped"],
+                  "ln_mlp_train": ["gelu' = 1"]}[name]
+        if name == "swin_block_train" and mbshape[0] > 1:
+            faults = faults + ["shift mask dropped"]
         control = ""
         for fault in faults:
             bad = train_kernel_run(name, args16, cots16, fault)
@@ -544,25 +608,26 @@ def training_phases(cfg, dev, smi, rng):
             caught = bc > BF16_BRANCH_TOL
             good &= caught
             control += f"; {fault} {bc:.3g} {'caught' if caught else 'NOT CAUGHT'}"
-        # the keep fault on seeded keep factors 0, 1 / (1 - 0.2) and 1: the
-        # captured ones are all 1 where the rate is 0 and within 2% of it at
-        # stage 1, below what a 2e-2 bound can tell from 1
-        kv = tc.keep_vector(args[-1].numel()).to(dev)
-        args16k = args16[:-1] + (kv,)
-        ref16k = train_plain_run(name, cast_train_args(args16k, torch.float32),
+        # the keep fault (the block's keep2) on seeded keep factors 0,
+        # 1 / (1 - 0.2) and 1: the captured ones are all 1 where the rate is 0
+        # and within 2% of it at stage 1, below what a 2e-2 bound can tell
+        # from 1
+        args16k = seeded_keeps(name, args16)
+        ref16k = train_plain_run(name, cast_train_args(name, args16k, torch.float32),
                                  tuple(c.float() for c in cots16), tc)
         mk, bk = train_errors(train_kernel_run(name, args16k, cots16), ref16k,
                               args16[0].float(), cots16[-1].float())
         bc = train_errors(train_kernel_run(name, args16k, cots16, "keep ignored"), ref16k,
                           args16[0].float(), cots16[-1].float())[1]
         good &= mk <= BF16_TOL and bk <= BF16_BRANCH_TOL and bc > BF16_BRANCH_TOL
-        control += (f"; seeded keeps bf16 {mk:.3g} / {bk:.3g}, keep ignored {bc:.3g} "
+        label = "keep2 ignored" if name == "swin_block_train" else "keep ignored"
+        control += (f"; seeded keeps bf16 {mk:.3g} / {bk:.3g}, {label} {bc:.3g} "
                     f"{'caught' if bc > BF16_BRANCH_TOL else 'NOT CAUGHT'}")
         ok &= good
-        keep = args[-1]
-        log(f"[train-kernel] {name} x{xshape} mb{mbshape} x{count} (keep min {keep.min():.3g} "
-            f"max {keep.max():.3g}): max err / scale f32 {m32:.3g} bf16 {m16:.3g}; branch RMS "
-            f"err f32 {b32:.3g} bf16 {b16:.3g}{control} {'ok' if good else 'FAIL'}")
+        log(f"[train-kernel] {name} x{xshape} mb{mbshape} x{count} (captured keep min "
+            f"{keep.min():.3g} max {keep.max():.3g}): max err / scale f32 {m32:.3g} bf16 "
+            f"{m16:.3g}; branch RMS err f32 {b32:.3g} bf16 {b16:.3g}{control} "
+            f"{'ok' if good else 'FAIL'}")
 
         # time per step: forward + autograd backward as the step runs them,
         # bf16 (and the kernel in f32), each beside its bound
@@ -577,6 +642,8 @@ def training_phases(cfg, dev, smi, rng):
         row[5] += count * cuda_ms(train_closure(name, args, cots, kernel=True), reps=3)
         flops, nbytes = train_work(name, args)
         row[6] += count * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        row[7] += count * cuda_ms(lambda: train_kernel_run(name, args16, cots16, raw=True),
+                                  reps=5)
     del cap
     if not ok:
         log("[train-kernel] FAILED: a training kernel disagrees with its plain version, "
@@ -702,10 +769,10 @@ def training_phases(cfg, dev, smi, rng):
                 f"{busy:.1f} ms of the {wall:.1f} ms step, idle {100 - 100 * busy / wall:.1f}%; "
                 f"{sum(n for _, n in kernels.values())} kernel launches; longest: "
                 + "; ".join(f"{t:.1f} ms x{n} {k[:60]}" for k, (t, n) in top) + f" ({smi})")
-    for name, (k_ms, p_ms, b_ms, _, _, k32, b32) in times.items():
-        log(f"[train-time] {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms per bf16 step (forward + backward); f32 kernel {k32:.3f} ms, "
-            f"bound {b32:.3f} ms ({smi})")
+    for name, (k_ms, p_ms, b_ms, _, _, k32, b32, d_ms) in times.items():
+        log(f"[train-time] {name}: kernel {k_ms:.3f} ms ({d_ms:.3f} ms by direct launches, "
+            f"no autograd), plain {p_ms:.3f} ms, bound {b_ms:.3f} ms per bf16 step (forward + "
+            f"backward); f32 kernel {k32:.3f} ms, bound {b32:.3f} ms ({smi})")
     del state, model
     torch.cuda.empty_cache()
 
@@ -741,6 +808,7 @@ def training_phases(cfg, dev, smi, rng):
              "ms": times[name][0], "plain_ms": times[name][1], "bound_ms": times[name][2],
              "bound_by": "operations" if times[name][3] >= times[name][4] else "bytes",
              "f32_ms": times[name][5], "f32_bound_ms": times[name][6],
+             "direct_ms": times[name][7],
              # no single PyTorch call computes either contract (forward and backward)
              "library_ms": None}
             for name in train_kernels]
@@ -764,8 +832,11 @@ def train_closure(name, args, cots, kernel):
     for timing: nothing is cast or copied outside the call."""
     from mumpy_tpu_torch.ops import attn_ln_train as alt
     from mumpy_tpu_torch.ops import ln_mlp_train as lmt
+    from mumpy_tpu_torch.ops import swin_block_train as sbt
 
-    if name == "attn_ln_train":
+    if name == "swin_block_train":
+        fn = sbt.launch_swin_block_train if kernel else sbt.swin_block_train_plain
+    elif name == "attn_ln_train":
         fn = alt.launch_attn_ln_train if kernel else alt.attn_ln_train_plain
     else:
         fn = lmt.launch_ln_mlp_train if kernel else lmt.ln_mlp_train_plain
@@ -777,7 +848,7 @@ def train_closure(name, args, cots, kernel):
         return t
 
     fargs = [{k: leaf(v) if torch.is_tensor(v) else v for k, v in a.items()}
-             if isinstance(a, dict) else (a if i == len(args) - 1 else leaf(a))
+             if isinstance(a, dict) else (a if i >= len(args) - KEEPS[name] else leaf(a))
              for i, a in enumerate(args)]
 
     def run():

@@ -8,7 +8,9 @@
 //           = x[a(m), :]                       (otherwise)
 //   v      = A @ W + bias,  W is (K, N) row-major
 //   v      = gelu_erf(v)                       (act 1)
-//          = v * gelu_erf'(aux[c(m), n])       (act 2: the GELU backward, aux = f1)
+//          = v * gelu_erf'(aux[c(m), n])       (act 2: the GELU backward, aux = f1;
+//            with aux_out, also aux_out[c(m), n] = T(gelu_erf(aux)), the
+//            activation the fc2 weight gradient reads)
 //   y[c(m), n] = T(v)                          (y != null)
 //   out[c(m), n] = T(res[c(m), n] + T(v))     (out != null; res required)
 //                = T(res[c(m), n] + s[m / d] * v)   (with a row scale s, f32,
@@ -47,7 +49,7 @@ struct GemmArgs {
   const void* ln_g; const void* ln_b; const void* res;
   const int* a_map; const int* c_map;
   void* y; void* out;
-  const float* row_scale; const void* aux;
+  const float* row_scale; const void* aux; void* aux_out;
   int M, N, K, a_sum, a_seg, act, map_len, scale_div;
 };
 
@@ -118,7 +120,11 @@ __device__ __forceinline__ void epilogue(const GemmArgs& p, int m, int n, float 
   if (p.bias != nullptr) v += static_cast<const float*>(p.bias)[n];
   const size_t idx = (size_t)map_row(p.c_map, p.map_len, m) * p.N + n;
   if (p.act == kActGelu) v = gelu_erf(v);
-  else if (p.act == kActGeluGrad) v *= gelu_erf_grad(static_cast<const float*>(p.aux)[idx]);
+  else if (p.act == kActGeluGrad) {
+    const float f1 = static_cast<const float*>(p.aux)[idx];
+    v *= gelu_erf_grad(f1);
+    if (p.aux_out != nullptr) static_cast<float*>(p.aux_out)[idx] = gelu_erf(f1);
+  }
   if (p.y != nullptr) static_cast<float*>(p.y)[idx] = v;
   if (p.out != nullptr) {
     const float s = p.row_scale != nullptr ? p.row_scale[m / p.scale_div] : 1.f;
@@ -344,6 +350,11 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
           unpack8(ldg8(static_cast<const __nv_bfloat16*>(p.aux) + idx), t);
 #pragma unroll
           for (int e = 0; e < 8; ++e) f[e] *= gelu_erf_grad(t[e]);
+          if (p.aux_out != nullptr) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) t[e] = gelu_erf(t[e]);
+            *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.aux_out) + idx) = pack8(t);
+          }
         }
         const uint4 yv = pack8(f);
         if (p.y != nullptr)
@@ -370,23 +381,24 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
 extern "C" int mumpy_gemm(const void* x, const void* w, const void* bias,
                           const void* ln_g, const void* ln_b, const void* res,
                           const int* a_map, const int* c_map, void* y, void* out,
-                          const float* row_scale, const void* aux, int M, int N, int K,
+                          const float* row_scale, const void* aux, void* aux_out,
+                          int M, int N, int K,
                           int a_sum, int a_seg, int act, int map_len, int scale_div,
                           int dtype, void* stream) {
   using namespace mumpy;
   if ((a_map != nullptr || c_map != nullptr) && (map_len <= 0 || M % map_len || a_sum > 1))
     return (int)cudaErrorInvalidValue;
   if ((row_scale != nullptr && scale_div <= 0) || (act == kActGeluGrad && aux == nullptr) ||
-      act < kActNone || act > kActGeluGrad)
+      act < kActNone || act > kActGeluGrad || (aux_out != nullptr && act != kActGeluGrad))
     return (int)cudaErrorInvalidValue;
-  GemmArgs p{x, w, bias, ln_g, ln_b, res, a_map, c_map, y, out, row_scale, aux,
+  GemmArgs p{x, w, bias, ln_g, ln_b, res, a_map, c_map, y, out, row_scale, aux, aux_out,
              M, N, K, a_sum, a_seg, act, map_len, scale_div};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
     const bool tc = K % 8 == 0 && N % 8 == 0 && (ln_g == nullptr || K <= kTcMaxLnK) &&
                     aligned16(x) && aligned16(w) && aligned16(bias) && aligned16(ln_g) &&
                     aligned16(ln_b) && aligned16(res) && aligned16(y) && aligned16(out) &&
-                    aligned16(aux);
+                    aligned16(aux) && aligned16(aux_out);
     if (!tc) return (int)cudaErrorInvalidValue;
     dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
     gemm_bf16_tc_kernel<<<grid, kTcThreads, 0, s>>>(p);

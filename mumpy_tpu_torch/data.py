@@ -1,14 +1,18 @@
 """Clips for the serving and training CLIs: the port's own copy of the parts
-of ``mumpy_tpu/configs/data_config.py`` and ``mumpy_tpu/data/dataset.py``
-that read a test or a train split, with no LMDB index and no worker pool.
+of ``mumpy_tpu/configs/data_config.py``, ``mumpy_tpu/data/db.py`` and
+``mumpy_tpu/data/dataset.py`` that read a test or a train split, with no
+LMDB index and no worker pool.
 
 * one clip per frame: a centred window of ``length_clip`` frame indices,
   clamped at the sequence edges;
 * the frames resized to ``input_res`` and normalised with the reference's
   mean / std, channels-last float32 (or uint8, normalised later);
-* the sequences are the sub-directories of the stream root (the JAX
-  package's membership rule when no db-info yaml is present, and it ships
-  none);
+* each split's sequences come from a db-info yaml (``db_info``), as in the
+  JAX package: ``train`` and ``val`` keep the sequences of that set whose
+  directory exists under the stream root, ``test`` reads the ``val`` set,
+  ``train-val`` both; a DAVIS record newer than ``year`` is left out.  With
+  no yaml (the default: the package ships none) every sub-directory of the
+  stream root is a sequence of every split;
 * a train split reads one to three inpainting streams (the same frames from
   other inpainting methods) and the centre frame's annotation, binarised;
   ``multilateral_collate`` concatenates the streams along the batch and
@@ -31,8 +35,8 @@ import numpy as np
 from .augment import clip_augment, double_clip_augment
 
 __all__ = ["MEAN", "STD", "DataConfig", "davis_config", "youtubevos_config", "Clip",
-           "list_frames", "build_clips", "load_frame", "normalize", "EvalClips",
-           "binarize_mask", "TrainClips", "multilateral_collate", "DataLoader"]
+           "read_sequences", "list_frames", "build_clips", "load_frame", "normalize",
+           "EvalClips", "binarize_mask", "TrainClips", "multilateral_collate", "DataLoader"]
 
 # normalisation constants of the reference (``train.py:49-55``, ``test.py:23-24``)
 MEAN = (0.4776, 0.479, 0.4465)
@@ -46,6 +50,7 @@ class DataConfig:
     length_clip: int = 3
     input_res: Tuple[int, int] = (224, 224)
     frame_ext: str = "png"  # davis frames are .png, youtube .jpg
+    db_info: Optional[str] = None  # yaml of sequence membership; None: scan the root
     # training: the other inpainting streams, the annotations and the loader
     sequences2: Optional[str] = None
     sequences3: Optional[str] = None
@@ -72,6 +77,40 @@ class Clip:
     starting_frame: int  # centre-frame number, which names the output mask
 
 
+def _split_keeps(tag: str, split: str) -> bool:
+    """Whether a record of set ``tag`` belongs to ``split``."""
+    if split == "train-val":
+        return tag in ("train", "val")
+    return tag == ("val" if split == "test" else split)
+
+
+def read_sequences(dataset: str, root: str, db_info: Optional[str], year: Optional[str],
+                   split: str) -> List[str]:
+    """The names of a split's sequences (``mumpy_tpu/data/db.py:read_sequences``):
+    from the db-info yaml when it exists, else every sub-directory of
+    ``root``.  DAVIS yamls list ``sequences`` records (``name``, ``set``,
+    ``year``), YouTube-VOS yamls ``video_name`` records with no year filter;
+    ``train`` and ``val`` also need the sequence's directory."""
+    if db_info is None or not os.path.exists(db_info):
+        return sorted(d for d in os.listdir(root)
+                      if os.path.isdir(os.path.join(root, d))) if os.path.isdir(root) else []
+    import yaml
+
+    with open(db_info) as f:
+        recs = yaml.safe_load(f)
+    youtube = "youtube" in dataset
+    key = "video_name" if youtube else "name"
+    names = []
+    for r in recs if youtube else recs["sequences"]:
+        if not youtube and year is not None and int(r.get("year", year)) > int(year):
+            continue
+        tag = r.get("set", "train")
+        if _split_keeps(tag, split) and (split in ("test", "train-val") or os.path.isdir(
+                os.path.join(root, r[key]))):
+            names.append(r[key])
+    return names
+
+
 def list_frames(seq_dir: str, ext: str) -> List[str]:
     files = sorted(glob.glob(os.path.join(seq_dir, f"*.{ext}")))
     if not files:  # tolerate mixed extensions
@@ -80,11 +119,10 @@ def list_frames(seq_dir: str, ext: str) -> List[str]:
     return files
 
 
-def build_clips(cfg: DataConfig) -> List[Clip]:
-    """Sliding centred windows with edge clamping, every sequence of the root."""
+def build_clips(cfg: DataConfig, split: str) -> List[Clip]:
+    """Sliding centred windows with edge clamping over the split's sequences."""
     root = cfg.sequences
-    names = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d))) \
-        if os.path.isdir(root) else []
+    names = read_sequences(cfg.dataset, root, cfg.db_info, cfg.year, split)
     k = cfg.length_clip // 2
     clips = []
     for name in names:
@@ -115,9 +153,9 @@ def normalize(frames_u8: np.ndarray) -> np.ndarray:
 class EvalClips:
     """The clips of a test split and their normalised frames."""
 
-    def __init__(self, cfg: DataConfig):
+    def __init__(self, cfg: DataConfig, split: str = "test"):
         self.cfg = cfg
-        self.clips = build_clips(cfg)
+        self.clips = build_clips(cfg, split)
 
     def __len__(self) -> int:
         return len(self.clips)
@@ -162,7 +200,7 @@ class TrainClips:
     def __init__(self, cfg: DataConfig, split: str = "train"):
         self.cfg = cfg
         self.split = split
-        self.clips = build_clips(cfg)
+        self.clips = build_clips(cfg, split)
         self.stream_roots = [r for r in (cfg.sequences, cfg.sequences2, cfg.sequences3) if r]
 
     def __len__(self) -> int:

@@ -16,15 +16,17 @@ the blocks execute, not how they are named.  The global ViT runs time-major,
 on a (3, B*49, C) carry, through the ``vit3`` kernel.
 
 In train mode (``model.train()``) the encoder follows the JAX package's
-training path with ``MUMPY_FUSED_TRAIN_SITES=cross,mlp``: each cross-view
-block's attention half through the ``attn_ln_train`` kernel and its tail
-through ``ln_mlp_train``; the plain blocks one by one by plain autograd, each
-(shifted, plain) pair recomputed in the backward (``torch.utils.checkpoint``,
-the JAX package's scan remat); the ViT with its tails through
-``ln_mlp_train``.  Drop-path follows the JAX schedule: ``dpr =
-linspace(0, rate, sum(view-3 depths))`` for all three views, ``dpr[base]``
-for the cross block of a stage and ``dpr[base + i]`` for its plain block i,
-``linspace(0, rate, layers)`` for the ViT.  Every keep factor is drawn from
+training path with its default ``MUMPY_FUSED_TRAIN_SITES=block,cross,mlp``:
+each cross-view block's attention half through the ``attn_ln_train`` kernel
+and its tail through ``ln_mlp_train``; the plain blocks one by one through
+the ``swin_block_train`` kernel, whose backward recomputes each block from
+its input (on the plain path, by plain autograd with each (shifted, plain)
+pair recomputed in the backward, ``torch.utils.checkpoint``, the JAX
+package's scan remat); the ViT with its tails through ``ln_mlp_train``.
+Drop-path follows the JAX schedule: ``dpr = linspace(0, rate, sum(view-3
+depths))`` for all three views, ``dpr[base]`` for the cross block of a stage
+and ``dpr[base + i]`` for its plain block i, ``linspace(0, rate, layers)``
+for the ViT.  Every keep factor is drawn from
 the ``generator`` the forward is given.
 """
 
@@ -292,15 +294,19 @@ def _pair_forward(first, second, x, ka0, km0, ka1, km1, *params):
 def train_plain_blocks(blocks: List[SwinBlock], x: torch.Tensor, generator,
                        remat: bool) -> torch.Tensor:
     """One view's plain blocks 1..d-1 of a stage in training, as the JAX
-    package's scanned stack runs them: (block i, block i+1) pairs, each
-    recomputed in the backward when ``remat``, then a lone last block
-    without.  Keep factors are drawn before the checkpoint and the pair is
+    package's scanned stack runs them: (block i, block i+1) pairs, then a
+    lone last block.  On the plain path each pair is recomputed in the
+    backward when ``remat``; on the kernel path it is not, as the JAX package
+    drops the scan's remat for the stacks its block kernel owns
+    (``kernel_owns_memory``): the kernel's backward recomputes the block from
+    its input.  Keep factors are drawn before the checkpoint and the pair is
     handed its parameters, so the recompute reads the tensors the forward
     read (the bf16 casts of a mixed-precision step included)."""
     b = x.shape[0]
     keeps = [(drop_path_keep(b, blk.drop_path, generator, x.device),
               drop_path_keep(b, blk.drop_path, generator, x.device)) for blk in blocks]
     n_pairs = len(blocks) // 2
+    remat = remat and not (blocks and blocks[0].use_kernels)
     for i in range(n_pairs):
         first, second = blocks[2 * i], blocks[2 * i + 1]
         args = (x, *keeps[2 * i], *keeps[2 * i + 1],

@@ -10,12 +10,12 @@ In eval mode the blocks' attention and MLP go through the hand-written
 serving kernels of :mod:`..ops`; :class:`KernelSite` holds each block's
 kernel operands and the explicit choice between a kernel and its plain
 version.  In train mode (``model.train()``) every block runs on its live
-parameters, never on those operands, as the JAX package trains with
-``MUMPY_FUSED_TRAIN_SITES=cross,mlp``: the plain Swin blocks by plain
-autograd (its XLA path; their training kernel is not ported yet), the ViT
-layers' attention by plain autograd and their MLP tails through the
-``ln_mlp_train`` kernel.  Stochastic depth is a per-sample keep factor drawn
-from an explicit ``torch.Generator`` (:func:`drop_path_keep`).
+parameters, never on those operands, as the JAX package trains with its
+default ``MUMPY_FUSED_TRAIN_SITES=block,cross,mlp``: the plain Swin blocks
+through the ``swin_block_train`` kernel, the ViT layers' attention by plain
+autograd and their MLP tails through the ``ln_mlp_train`` kernel.
+Stochastic depth is a per-sample keep factor drawn from an explicit
+``torch.Generator`` (:func:`drop_path_keep`).
 """
 
 from __future__ import annotations
@@ -27,11 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import attn_ln_train as attn_ln_train_ops
-from ..ops import ln_mlp_train as ln_mlp_train_ops
 from ..ops.ln_mlp import ln_mlp_operands
 from ..ops.ln_mlp_train import ln_mlp_train, ln_mlp_train_plain, ln_mlp_weights
 from ..ops.swin_block import swin_block, swin_block_operands, swin_block_plain
+from ..ops.swin_block_train import swin_block_train, swin_block_train_plain, swin_block_weights
 from ..ops.swin_pair import shift_row_map, swin_pair, swin_pair_operands, swin_pair_plain
 from ..ops.vit3 import vit3, vit3_operands, vit3_plain
 from ..ops.window import partition_tokens, shifted_window_mask, unpartition_tokens
@@ -190,33 +189,27 @@ class SwinBlock(KernelSite):
 
     def train_params(self):
         """The live parameters the training forward reads, in a fixed order
-        (so a recomputed pair reads the tensors of its forward)."""
+        (so a recomputed pair reads the tensors of its forward): the 12 of
+        ``swin_block_weights``, then the relative-position table."""
         a, m = self.attn, self.mlp
         return [self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias, a.proj.weight,
-                a.proj.bias, a.relative_position_bias_table, self.norm2.weight,
-                self.norm2.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias]
+                a.proj.bias, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+                m.fc2.weight, m.fc2.bias, a.relative_position_bias_table]
 
     def train_forward(self, x, keep_attn, keep_mlp, *params):
-        """Training: the block by plain autograd on ``params`` (default: its
-        live parameters), as the JAX package's XLA path trains it.
-        ``keep_attn`` / ``keep_mlp`` (B,) are the two residual branches'
-        per-sample keep factors."""
-        g1, b1, wqkv, bqkv, wp, bp, table, g2, b2, w1, bb1, w2, bb2 = \
-            params or self.train_params()
+        """Training: the block through the ``swin_block_train`` kernel (or its
+        plain version) on ``params`` (default: its live parameters), on its
+        (rolled) windows.  ``keep_attn`` / ``keep_mlp`` (B,) are the two
+        residual branches' per-sample keep factors, repeated over the
+        sample's windows."""
+        *weights, table = params or self.train_params()
         gh, gw = self.grid()
-        b, l, c = x.shape
         nw = (gh // self.window) * (gw // self.window)
         wins = partition_tokens(x, gh, gw, self.window, self.shift)
-        attn = {"ln_g": g1, "ln_b": b1, "w_qkv": wqkv, "b_qkv": bqkv, "w_proj": wp,
-                "b_proj": bp, "heads": self.attn.num_heads}
-        # plain functions of the ops modules, not this module's kernel-site
-        # names (which chip_smoke.py instruments): these blocks are no site
-        _, wins = attn_ln_train_ops.attn_ln_train_plain(
-            wins, self.mask_bias(table), attn, keep_attn.repeat_interleave(nw))
-        x = unpartition_tokens(wins, gh, gw, self.window, self.shift).reshape(b * l, c)
-        mlp = {"ln_g": g2, "ln_b": b2, "w1": w1, "b1": bb1, "w2": w2, "b2": bb2}
-        x = ln_mlp_train_ops.ln_mlp_train_plain(x, mlp, keep_mlp.repeat_interleave(l))
-        return x.reshape(b, l, c)
+        fn = swin_block_train if self.use_kernels else swin_block_train_plain
+        wins = fn(wins, self.mask_bias(table), swin_block_weights(weights, self.attn.num_heads),
+                  keep_attn.repeat_interleave(nw), keep_mlp.repeat_interleave(nw))
+        return unpartition_tokens(wins, gh, gw, self.window, self.shift)
 
     def forward(self, x):
         gh, gw = self.grid()

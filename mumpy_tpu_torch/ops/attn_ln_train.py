@@ -20,9 +20,12 @@ weight-gradient products.  The port keeps that contract:
   attention core again (o), ``dproj = dy + keep * dout``, ``do = dproj
   Wproj^T``, the attention backward (``csrc/window_attention_bwd.cu``: dqkv
   and the mask+bias gradient, summed over windows), ``dh1 = dqkv Wqkv^T``,
-  and the LayerNorm backward with the residual's ``dout`` added.  The
-  weight-gradient products and the bias and LayerNorm-scale sums stay plain
-  ``torch.matmul`` / ``sum``, as they are XLA ops outside the Pallas kernel.
+  and the LayerNorm backward with the residual's ``dout`` added; then the
+  weight and bias gradients of qkv and of the projection and the LayerNorm
+  scale and bias gradients (``csrc/wgrad.cu``: row-split sums and their
+  reduction), which the JAX package sums in XLA outside its kernel.  The
+  backward is two steps, :func:`attn_recompute` and :func:`attn_bwd_from`,
+  so that ``swin_block_train`` can recompute once and reuse the second.
 
 The products with transposed weights read the torch Linear weights as they
 are stored, (out, in): the backward's ``do`` and ``dh1`` GEMMs need exactly
@@ -111,26 +114,41 @@ def launch_attn_ln_train_bwd(x, mbp, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_
     ln_b, w_qkv, b_qkv, w_proj, b_proj); ``rowsum=False`` is the planted fault
     of the checks (the softmax backward without its rowsum term)."""
     r, n, c = x.shape
-    hd = c // heads
     x2 = x.reshape(r * n, c)
-    dy2 = (torch.zeros_like(x2) if dy is None else dy).reshape(r * n, c).contiguous()
+    dy2 = None if dy is None else dy.reshape(r * n, c).contiguous()
     dout2 = (torch.zeros_like(x2) if dout is None else dout).reshape(r * n, c).contiguous()
+    rec = attn_recompute(x2, ln_g, ln_b, wq_t, b_qkv, mbp, r, n, heads)
+    return attn_bwd_from(x2, rec, mbp, keep, ln_g, w_qkv, w_proj, dy2, dout2, rowsum)
+
+
+def attn_recompute(x2, ln_g, ln_b, wq_t, b_qkv, mbp, r, n, heads):
+    """The backward's recompute from the (R*N, C) rows ``x2``: h1 = LN(x2)
+    and its f32 row statistics, the packed qkv and the head outputs o."""
     h1, mu, rstd = cuda_lib.ln_rows(x2, ln_g, ln_b)
     qkv, o = _attention(h1, wq_t, b_qkv, mbp, r, n, heads)
-    dproj = cuda_lib.scale_add_rows(dy2, dout2, keep, div=n)
+    return h1, mu, rstd, qkv, o
+
+
+def attn_bwd_from(x2, rec, mbp, keep, ln_g, w_qkv, w_proj, dy, dout, rowsum=True):
+    """The attention half's backward from its recompute ``rec``
+    (:func:`attn_recompute`) and the (R*N, C) cotangents of ``y`` (``dy``,
+    may be None) and of ``out = x + keep * y`` (``dout``).  Returns the
+    gradients of (x, mbp, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj)."""
+    h1, mu, rstd, qkv, o = rec
+    rows, c = x2.shape
+    heads, n = mbp.shape[1], mbp.shape[2]
+    hd = c // heads
+    dproj = cuda_lib.scale_add_rows(dy, dout, keep, div=n)
     do, _ = cuda_lib.gemm(dproj, w_proj)
-    dqkv, dmb = cuda_lib.window_attention_bwd(qkv, do, mbp, r=r, n=n, heads=heads, hd=hd,
-                                              scale=hd**-0.5, rowsum=rowsum)
+    dqkv, dmb = cuda_lib.window_attention_bwd(qkv, do, mbp, r=rows // n, n=n, heads=heads,
+                                              hd=hd, scale=hd**-0.5, rowsum=rowsum)
     dh1, _ = cuda_lib.gemm(dqkv, w_qkv)
-    dx = cuda_lib.ln_bwd_rows(x2, mu, rstd, ln_g, dh1, dres=dout2)
-    dh1f = dh1.float()
-    xhat = (x2.float() - mu[:, None]) * rstd[:, None]
+    dx = cuda_lib.ln_bwd_rows(x2, mu, rstd, ln_g, dh1, dres=dout)
     dmbp = torch.zeros_like(mbp)
     dmbp[..., :n] = dmb
-    return (dx.reshape(r, n, c), dmbp, None,
-            (dh1f * xhat).sum(0).to(ln_g.dtype), dh1f.sum(0).to(ln_b.dtype),
-            dqkv.t() @ h1, dqkv.float().sum(0).to(b_qkv.dtype),
-            dproj.t() @ o, dproj.float().sum(0).to(w_proj.dtype))
+    return (dx.reshape(rows // n, n, c), dmbp, None,
+            *cuda_lib.ln_param_grads(x2, mu, rstd, ln_g, dh1),
+            *cuda_lib.weight_grads(dqkv, h1), *cuda_lib.weight_grads(dproj, o))
 
 
 def attn_ln_train(x, mb, p, keep):

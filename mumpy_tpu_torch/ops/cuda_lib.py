@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels of ``mumpy_tpu_torch/csrc``.
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The library
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library
 is cached under ``<repo>/build/`` keyed by a hash of the sources, so a checkout
 builds everything from its own files and a changed source rebuilds.  Nothing
 is built at import time: every module of the package imports on a machine
@@ -27,7 +28,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_seconds = None  # wall time of the nvcc run, or 0.0 when the cache hit
@@ -35,7 +36,10 @@ build_log = ""
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mumpy_gemm": [_P] * 12 + [_I] * 9 + [_P],
+    "mumpy_gemm": [_P] * 13 + [_I] * 9 + [_P],
+    "mumpy_gemm_tn": [_P] * 5 + [_I] * 5 + [_P],
+    "mumpy_col_sums": [_P] * 7 + [_I] * 4 + [_P],
+    "mumpy_reduce_splits": [_P, _I, _I, _P, _I, _P, _I, _P],
     "mumpy_window_attention": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
     "mumpy_cva_sample": [_P] * 4 + [_I] * 7 + [_P],
     "mumpy_vit3_attention": [_P] * 2 + [_I] * 3 + [_F, _I, _P],
@@ -66,18 +70,27 @@ def _build() -> Path:
         build_seconds = 0.0
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
-        capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(logs)
+        failed = [src.name for src, proc in zip(sources, procs) if proc.returncode != 0]
+        if not failed:
+            so = Path(tmp) / "lib.so"
+            link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(so),
+                                   *map(str, objs)], capture_output=True, text=True)
+            build_log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["the link"]
+        build_seconds = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+        os.replace(so, target)  # atomic: a concurrent build never sees half a file
     return target
 
 
@@ -154,7 +167,7 @@ ACT_NONE, ACT_GELU, ACT_GELU_GRAD = 0, 1, 2  # the GEMM epilogue's activation (c
 
 def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
          gelu=False, a_sum=1, a_seg=1, a_map=None, c_map=None, row_scale=None,
-         scale_div=1, gelu_grad_of=None):
+         scale_div=1, gelu_grad_of=None, gelu_out=None):
     """Launch the tiled GEMM (csrc/gemm.cu).  ``x`` is (M*a_sum, K) (the fold
     reads ``a_sum`` rows per output row), ``w`` (K, N).  Returns ``y`` and/or
     ``out = res + y`` as requested.  ``a_map`` / ``c_map`` are int32 row maps
@@ -162,7 +175,8 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
     ``(m // L) * L + a_map[m % L]``, and the residual row and the stored rows
     of y / out are ``(m // L) * L + c_map[m % L]``.  ``row_scale`` (f32) makes
     ``out = res + row_scale[m // scale_div] * y``; ``gelu_grad_of`` (M, N)
-    multiplies the product by GELU'(gelu_grad_of), the GELU backward."""
+    multiplies the product by GELU'(gelu_grad_of), the GELU backward, and
+    then also writes GELU(gelu_grad_of) into ``gelu_out`` when it is given."""
     k = x.shape[-1]
     m = x.numel() // k // a_sum
     n = w.shape[1]
@@ -188,13 +202,17 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
     if gelu_grad_of is not None:
         require(gelu_grad_of, "gelu input", x, shape=(m, n))
         act = ACT_GELU_GRAD
+    if gelu_out is not None:
+        if gelu_grad_of is None:
+            raise ValueError("gemm: gelu_out needs gelu_grad_of")
+        require(gelu_out, "gelu output", x, shape=(m, n))
     if map_len and (m % map_len or a_sum > 1):
         raise ValueError(f"gemm: a row map of length {map_len} needs M={m} to be a "
                          f"multiple of it and no row fold")
     if m > _GRID_Y_MAX_ROWS:
         raise ValueError(f"gemm: {m} rows exceed the grid limit {_GRID_Y_MAX_ROWS}")
     if x.dtype == torch.bfloat16:  # the tensor-core loop's limits (csrc/gemm.cu)
-        operands = (x, w, bias, ln_g, ln_b, res, gelu_grad_of)
+        operands = (x, w, bias, ln_g, ln_b, res, gelu_grad_of, gelu_out)
         if (k % 8 or n % 8 or (ln is not None and k > _TC_MAX_LN_K)
                 or any(t is not None and t.data_ptr() % 16 for t in operands)):
             raise ValueError(f"bf16 gemm takes K and N multiples of 8, LayerNorm rows of "
@@ -207,7 +225,7 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
         out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     check(lib().mumpy_gemm(ptr(x), ptr(w), ptr(bias), ptr(ln_g), ptr(ln_b), ptr(res),
                            ptr(a_map), ptr(c_map), ptr(y), ptr(out), ptr(row_scale),
-                           ptr(gelu_grad_of), m, n, k, a_sum, a_seg, act, map_len,
+                           ptr(gelu_grad_of), ptr(gelu_out), m, n, k, a_sum, a_seg, act, map_len,
                            scale_div, dtype_code(x), stream_of(x)), "gemm")
     return y, out
 
@@ -326,6 +344,76 @@ def ln_bwd_rows(x, mu, rstd, g, dh, dres=None):
                                   ptr(dx), rows, c, dtype_code(x), stream_of(x)),
           "ln_bwd_rows")
     return dx
+
+
+# about two blocks per SM of an H100 (132 SMs): the row splits of the
+# weight-gradient sums aim for this many blocks
+_SPLIT_BLOCKS = 264
+_TN_TILE = {torch.bfloat16: 128, torch.float32: 64}  # dW tile edge (csrc/wgrad.cu)
+
+
+def _rows_per_split(rows, blocks):
+    """Rows per split: enough splits that ``blocks`` blocks per split fill
+    about _SPLIT_BLOCKS, each split at least 256 rows."""
+    return -(-rows // max(1, min(-(-_SPLIT_BLOCKS // blocks), rows // 256)))
+
+
+def _reduce_splits(ws, splits, out1, out2):
+    check(lib().mumpy_reduce_splits(ptr(ws), splits, out1.numel(), ptr(out1), out2.numel(),
+                                    ptr(out2), dtype_code(out1), stream_of(out1)),
+          "reduce_splits")
+
+
+def weight_grads(d, a):
+    """The weight and bias gradients of a Linear layer from its output
+    gradient ``d`` (M, O) and its input ``a`` (M, I), in their dtype with f32
+    accumulation (csrc/wgrad.cu): ``(d^T a, d.sum(0))``, the first in torch
+    Linear's (O, I) layout.  Many rows are split over blocks, and the f32
+    partials summed in split order by a second launch."""
+    rows, o = d.shape
+    i = a.shape[1]
+    require(d, "output gradient", d)
+    require(a, "layer input", d, shape=(rows, i))
+    if d.dtype == torch.bfloat16 and (o % 8 or i % 8):
+        raise ValueError(f"bf16 weight gradients take widths that are multiples of 8, got "
+                         f"{o} and {i}")
+    tile = _TN_TILE[d.dtype]
+    per = _rows_per_split(rows, -(-o // tile) * -(-i // tile))
+    n_splits = -(-rows // per)
+    dw = torch.empty((o, i), device=d.device, dtype=d.dtype)
+    db = torch.empty(o, device=d.device, dtype=d.dtype)
+    ws = None
+    if n_splits > 1:
+        ws = torch.empty((n_splits, o * i + o), device=d.device, dtype=torch.float32)
+    check(lib().mumpy_gemm_tn(ptr(d), ptr(a), ptr(ws), ptr(dw), ptr(db), rows, o, i, per,
+                              dtype_code(d), stream_of(d)), "gemm_tn")
+    if ws is not None:
+        _reduce_splits(ws, n_splits, dw, db)
+    return dw, db
+
+
+def ln_param_grads(x, mu, rstd, g, dh):
+    """The LayerNorm scale and bias gradients, in ``g``'s dtype, from its
+    input ``x``, the f32 row statistics :func:`ln_rows` returns and the
+    output gradient ``dh``: the column sums of dh * xhat and of dh
+    (csrc/wgrad.cu, rows split over blocks as in :func:`weight_grads`)."""
+    rows, c = x.shape
+    require(x, "x", x)
+    require(dh, "dh", x, shape=(rows, c))
+    for t, name in ((mu, "mu"), (rstd, "rstd")):
+        require(t, name, x, shape=(rows,), dtype=torch.float32)
+    require(g, "ln scale", x, shape=(c,))
+    per = _rows_per_split(rows, -(-c // 32))
+    n_splits = -(-rows // per)
+    dg, db = torch.empty_like(g), torch.empty_like(g)
+    ws = None
+    if n_splits > 1:
+        ws = torch.empty((n_splits, 2 * c), device=x.device, dtype=torch.float32)
+    check(lib().mumpy_col_sums(ptr(dh), ptr(x), ptr(mu), ptr(rstd), ptr(ws), ptr(dg), ptr(db),
+                               rows, c, per, dtype_code(x), stream_of(x)), "col_sums")
+    if ws is not None:
+        _reduce_splits(ws, n_splits, dg, db)
+    return dg, db
 
 
 def scale_add_rows(a, b, s, div=1):

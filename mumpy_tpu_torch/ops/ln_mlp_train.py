@@ -13,10 +13,12 @@ the training path.  The port keeps that contract:
   the row statistics, ``csrc/train_rows.cu``), ``f1 = h W1 + b1``,
   ``df2 = keep * dy``, ``df1 = (df2 W2^T) * gelu'(f1)`` (the GELU-backward
   epilogue, which reads f1), ``dh = df1 W1^T``, and the LayerNorm backward
-  with ``dy`` added.  The weight-gradient products and the bias and
-  LayerNorm-scale sums stay plain ``torch.matmul`` / ``sum``, as they are
-  XLA ops outside the Pallas kernel; so does ``gelu(f1)``, which only the
-  fc2 weight gradient reads.
+  with ``dy`` added; then the weight and bias gradients of fc1 and fc2 and
+  the LayerNorm scale and bias gradients (``csrc/wgrad.cu``), which the JAX
+  package sums in XLA outside its kernel.  ``gelu(f1)``, which only the fc2
+  weight gradient reads, comes from the GELU-backward epilogue, which reads
+  f1 anyway.  ``swin_block_train`` runs this backward for its MLP half, with
+  its keep2 per window of ``div`` rows.
 
 As in ``attn_ln_train``, the transposed products read the torch weights as
 stored; the forward builds (in, out) copies once per call.  Rows need not be a
@@ -66,22 +68,23 @@ class _LnMlpTrain(torch.autograd.Function):
         return launch_ln_mlp_train_bwd(*ctx.saved_tensors, dy)
 
 
-def launch_ln_mlp_train_bwd(x, keep, ln_g, ln_b, w1, b1, w2, w1_t, dy, gelu_grad=True):
+def launch_ln_mlp_train_bwd(x, keep, ln_g, ln_b, w1, b1, w2, w1_t, dy, div=1,
+                            gelu_grad=True):
     """The backward's launches.  Returns the gradients of (x, keep, ln_g, ln_b,
-    w1, b1, w2, b2); ``gelu_grad=False`` is the planted fault of the checks
-    (gelu' replaced by 1)."""
+    w1, b1, w2, b2); ``keep`` holds one factor per ``div`` rows.
+    ``gelu_grad=False`` is the planted fault of the checks (gelu' replaced by
+    1; gelu(f1) is then not computed and the fc2 weight gradient is zero)."""
     dy = dy.contiguous()
     h, mu, rstd = cuda_lib.ln_rows(x, ln_g, ln_b)
     f1, _ = cuda_lib.gemm(h, w1_t, b1)
-    df2 = cuda_lib.scale_add_rows(None, dy, keep)
-    df1, _ = cuda_lib.gemm(df2, w2, gelu_grad_of=f1 if gelu_grad else None)
+    df2 = cuda_lib.scale_add_rows(None, dy, keep, div=div)
+    g = torch.empty_like(f1) if gelu_grad else torch.zeros_like(f1)
+    df1, _ = cuda_lib.gemm(df2, w2, gelu_grad_of=f1 if gelu_grad else None,
+                           gelu_out=g if gelu_grad else None)
     dh, _ = cuda_lib.gemm(df1, w1)
     dx = cuda_lib.ln_bwd_rows(x, mu, rstd, ln_g, dh, dres=dy)
-    dhf = dh.float()
-    xhat = (x.float() - mu[:, None]) * rstd[:, None]
-    return (dx, None, (dhf * xhat).sum(0).to(ln_g.dtype), dhf.sum(0).to(ln_b.dtype),
-            df1.t() @ h, df1.float().sum(0).to(b1.dtype),
-            df2.t() @ F.gelu(f1), df2.float().sum(0).to(b1.dtype))
+    return (dx, None, *cuda_lib.ln_param_grads(x, mu, rstd, ln_g, dh),
+            *cuda_lib.weight_grads(df1, h), *cuda_lib.weight_grads(df2, g))
 
 
 def ln_mlp_train(x, p, keep):

@@ -37,6 +37,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-model_name", default="mumpy")
     p.add_argument("-dataset", default="davis", choices=["davis", "youtubevos"])
     p.add_argument("-seq_dir", default=None, help="inpainted-frame root (one stream)")
+    p.add_argument("-db_info", default=None,
+                   help="yaml of the sequences of each split; the test split reads its "
+                        "val set (default: every sub-directory of -seq_dir)")
+    p.add_argument("-year", default="2016", help="DAVIS: leave out sequences newer than this")
     p.add_argument("-results_dir", default="results")
     p.add_argument("-batch_size", default=6, type=int)
     p.add_argument("-imsize", default=224, type=int)
@@ -69,7 +73,8 @@ def main(argv=None) -> None:
 
     model_cfg = tiny_config(args.imsize) if args.tiny else multiswin_config(args.imsize)
     base = davis_config if args.dataset == "davis" else youtubevos_config
-    overrides = dict(input_res=(args.imsize, args.imsize))
+    overrides = dict(input_res=(args.imsize, args.imsize), db_info=args.db_info,
+                     year=args.year)
     if args.seq_dir:
         overrides["sequences"] = args.seq_dir
     data_cfg = base(**overrides)

@@ -10,9 +10,11 @@ per step, SGD):
 It trains on the first CUDA device, through the training kernels, unless
 ``-device cpu`` asks for the CPU (the kernels' plain versions); with
 ``-device cuda`` and no visible card it exits with an error.  The weights
-start from seeded random values (``-seed``), ``-pretrained`` (a reference
-checkpoint), ``-resume`` (this run's latest or ``-epoch_resume`` checkpoint)
-or ``-transfer`` (another run's latest weights, fresh optimizer).  Each best
+start from the JAX package's initialisation drawn from ``-seed``
+(``utils.weight_port.jax_init_state_dict``), which ``-pretrained`` (a
+reference checkpoint) overlays by name, ``-resume`` (this run's latest or
+``-epoch_resume`` checkpoint) or ``-transfer`` (another run's latest
+weights, fresh optimizer) replaces.  Each best
 checkpoint also writes ``<results_dir>/<model_name>/weights_torch.pt``, which
 ``python -m mumpy_tpu_torch.serve`` loads.
 """
@@ -27,7 +29,7 @@ import torch
 from ..configs import multiswin_config, tiny_config
 from ..data import DataLoader, TrainClips
 from ..models.mumpy import Mumpy
-from ..utils.weight_port import load_pretrained, random_state_dict
+from ..utils.weight_port import jax_init_state_dict, load_pretrained
 from . import checkpoint as ckpt_lib
 from .args import build_configs, get_parser
 from .optim import Optimizer
@@ -56,7 +58,7 @@ def main(argv=None) -> None:
     iter_max = int(steps_per_epoch * loop_cfg.max_epoch / opt_cfg.accumulation_steps)
 
     model = Mumpy(model_cfg)
-    model.load_state_dict(random_state_dict(model, seed=loop_cfg.seed % 2**32))
+    model.load_state_dict(jax_init_state_dict(model, seed=loop_cfg.seed % 2**32))
     if args.pretrained:
         print(f"Warm start: {load_pretrained(model, args.pretrained)} tensors from "
               f"{args.pretrained}")

@@ -21,7 +21,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-dataset", default="davis", choices=["davis", "youtubevos"])
     p.add_argument("-length_clip", default=3, type=int)
     p.add_argument("-batch_size", default=6, type=int)
-    p.add_argument("-year", default="2016")
+    p.add_argument("-year", default="2016", help="DAVIS: leave out sequences newer than this")
+    p.add_argument("-db_info", default=None,
+                   help="yaml of the sequences of each split (default: every sub-directory "
+                        "of -seq_dir, for every split)")
     p.add_argument("-imsize", default=224, type=int)
     p.add_argument("--augment", dest="augment", action="store_true", default=True)
     p.add_argument("--no-augment", dest="augment", action="store_false")
@@ -74,7 +77,7 @@ def build_configs(args: argparse.Namespace):
     overrides = dict(length_clip=args.length_clip, batch_size=args.batch_size,
                      augment=args.augment, single_augment=args.single_augment,
                      year=args.year, input_res=(args.imsize, args.imsize), seed=args.seed,
-                     sequences2=args.seq_dir2, sequences3=args.seq_dir3)
+                     sequences2=args.seq_dir2, sequences3=args.seq_dir3, db_info=args.db_info)
     if args.seq_dir:
         overrides["sequences"] = args.seq_dir
     if args.annot_dir:

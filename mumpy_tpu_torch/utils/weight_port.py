@@ -17,7 +17,9 @@ undoes:
 
 :func:`random_state_dict` draws every parameter of a model from a seeded
 normal distribution (numpy), so the port and the JAX package can be fed the
-same non-trivial weights.
+same non-trivial weights.  :func:`jax_init_state_dict` initialises a model
+by the JAX package's rule for each parameter (flax's initialisers, as
+``create_train_state`` draws them): the train CLI starts from it.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 
 from ..configs import MumpyConfig
 
-__all__ = ["from_jax_params", "random_state_dict"]
+__all__ = ["from_jax_params", "random_state_dict", "jax_init_rule", "draw_init",
+           "jax_init_state_dict"]
 
 
 def _plain_block_slot(stage: int, view: int, i: int, depth: int):
@@ -183,6 +186,60 @@ def random_state_dict(model: torch.nn.Module, seed: int, std: float = 0.02,
         if key in norms:
             a += 1.0
         out[key] = torch.from_numpy(a)
+    return out
+
+
+def jax_init_rule(name: str, module: torch.nn.Module, shape) -> tuple:
+    """The JAX package's initialiser of the port's parameter ``name`` (a
+    state_dict key) of ``module``, as ``("zeros",)``, ``("ones",)`` or
+    ``("trunc", std)``: a normal of that std truncated at two stds.
+
+    * every bias, and the CVA's ``proj_out`` kernel (``deformable.py:113-115``,
+      so every CVA branch starts at 0): zeros;
+    * LayerNorm and GroupNorm scales: ones;
+    * the decoder's 2-D convolutions: flax's default ``lecun_normal``, a
+      truncated normal of std 1 / sqrt(fan_in) after truncation (the
+      untruncated std divided by 0.87962566103423978);
+    * every other kernel and the relative-position tables:
+      ``truncated_normal(0.02)`` (``models/swin.py:208``, ``:316-320``).
+    """
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "bias" or name.endswith("cva.crossattn.proj_out.weight"):
+        return ("zeros",)
+    if isinstance(module, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+        return ("ones",)
+    if name.startswith("decoder.") and isinstance(module, torch.nn.Conv2d):
+        fan_in = int(np.prod(shape[1:]))
+        return ("trunc", fan_in ** -0.5 / 0.87962566103423978)
+    return ("trunc", 0.02)
+
+
+def draw_init(rule: tuple, shape, generator: torch.Generator) -> torch.Tensor:
+    """One f32 tensor drawn by ``rule`` (:func:`jax_init_rule`)."""
+    if rule[0] == "zeros":
+        return torch.zeros(shape)
+    if rule[0] == "ones":
+        return torch.ones(shape)
+    std = rule[1]
+    return torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std,
+                                       generator=generator)
+
+
+def jax_init_state_dict(model: torch.nn.Module, seed: int):
+    """A state_dict of ``model`` with every parameter drawn by the JAX
+    package's rule for it (:func:`jax_init_rule`) from one seeded
+    ``torch.Generator``, in state_dict order; buffers are kept.  The draws
+    follow JAX's distributions, not its random stream."""
+    gen = torch.Generator().manual_seed(seed)
+    modules = dict(model.named_modules())
+    params = dict(model.named_parameters())
+    out = {}
+    for key, t in model.state_dict().items():
+        if key not in params:
+            out[key] = t
+            continue
+        mod = modules[key.rsplit(".", 1)[0]]
+        out[key] = draw_init(jax_init_rule(key, mod, tuple(t.shape)), tuple(t.shape), gen)
     return out
 
 

@@ -7,12 +7,18 @@ seeded shuffling loader (``drop_last``, per-sample augmentation seeds drawn
 up front) gives the JAX loader's batches exactly, over two epochs, with the
 single and the double augmentation, normalised on the host or as uint8; the
 augmentations alone agree draw for draw; ``binarize_mask`` and
-``multilateral_collate`` agree."""
+``multilateral_collate`` agree.  With a db-info yaml whose train, val and
+test sets differ (one listed sequence has no directory, one is newer than
+the year), each split's sequences and clips (train, val, test, train-val)
+are the JAX package's, for DAVIS with and without the year filter and for
+YouTube-VOS."""
 
+import dataclasses
 import os
 
 import numpy as np
 import pytest
+import yaml
 from PIL import Image
 
 from mumpy_tpu.configs.data_config import davis_config as jax_davis_config
@@ -86,3 +92,44 @@ def test_binarize_and_collate_match_jax():
     assert got["image"].shape == (6, 3, 4, 4, 3) and got["mask"].shape == (6, 16)
     for k in ("image", "mask"):
         np.testing.assert_array_equal(got[k], want[k])
+
+
+SPLITS = ("train", "val", "test", "train-val")
+
+
+def _split_clips(root, year, youtube=False):
+    """(port, JAX) clips of every split, read through a db-info yaml."""
+    recs = [("bear", "train", 2016), ("car", "val", 2016), ("dog", "test", 2016),
+            ("gone", "train", 2016), ("dog", "val", 2017)]  # "gone" has no directory
+    path = root / ("yt.yaml" if youtube else "davis.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump([{"video_name": n, "set": s} for n, s, _ in recs] if youtube else
+                       {"sequences": [{"name": n, "set": s, "year": y} for n, s, y in recs]}, f)
+    kw = dict(sequences=str(root / "vi"), annotations=str(root / "annot"), db_info=str(path),
+              year=year)
+    ours = (data.youtubevos_config if youtube else data.davis_config)(**kw, frame_ext="png")
+    ref = (jds.DataConfig(dataset="youtubevos", **kw) if youtube
+           else jax_davis_config(**kw))
+    return {split: ([tuple(dataclasses.astuple(c)) for c in data.build_clips(ours, split)],
+                    [(c.seq_name, c.frame_files, c.starting_frame)
+                     for c in jds.build_clips(ref, split)]) for split in SPLITS}
+
+
+@pytest.mark.parametrize("year", ["2016", "2017"])
+def test_db_info_splits_match_jax(root, year):
+    clips = _split_clips(root, year)
+    names = {split: sorted({c[0] for c in ours}) for split, (ours, _) in clips.items()}
+    for split, (ours, ref) in clips.items():
+        assert ours == ref, split
+    newer = ["dog"] if year == "2017" else []
+    assert names == {"train": ["bear"], "val": sorted(["car"] + newer),
+                     "test": sorted(["car"] + newer),
+                     "train-val": sorted(["bear", "car"] + newer)}
+    assert len(data.TrainClips(data.davis_config(
+        sequences=str(root / "vi"), db_info=str(root / "davis.yaml"), year=year),
+        "val")) == len(clips["val"][0])
+
+
+def test_youtube_db_info_splits_match_jax(root):
+    for split, (ours, ref) in _split_clips(root, "2016", youtube=True).items():
+        assert ours == ref and ours, split

@@ -131,14 +131,17 @@ def test_drop_path_schedule_matches_jax(name):
 
 def test_keep_rows_repeat_as_in_jax(monkeypatch):
     """Cross blocks: the attention half's keep rows are one factor per sample
-    over its windows, the tail's one per sample over its tokens.  ViT: the
+    over its windows, the tail's one per sample over its tokens.  Plain
+    blocks: both keep vectors one factor per sample over its windows.  ViT: the
     tail's rows, time-major, take one factor per (clip, token), the same in
     all three time slices, and a dropped row passes its input through."""
-    seen = {"attn": [], "tail": [], "vit_tail": []}
+    seen = {"attn": [], "tail": [], "vit_tail": [], "block": []}
 
     def record(kind, plain):
         def fn(*args):
             seen[kind].append((args[0].shape, args[-1].clone()))
+            if kind == "block":  # keep1 too
+                seen[kind].append((args[0].shape, args[-2].clone()))
             return plain(*args)
         return fn
 
@@ -146,6 +149,8 @@ def test_keep_rows_repeat_as_in_jax(monkeypatch):
                         record("attn", encoder.attn_ln_train_plain))
     monkeypatch.setattr(encoder, "ln_mlp_train_plain", record("tail", encoder.ln_mlp_train_plain))
     monkeypatch.setattr(swin, "ln_mlp_train_plain", record("vit_tail", swin.ln_mlp_train_plain))
+    monkeypatch.setattr(swin, "swin_block_train_plain",
+                        record("block", swin.swin_block_train_plain))
     model = Mumpy(dataclasses.replace(pcfg.tiny_config(32), drop_path_rate=0.5)).train()
     set_kernel_path(model, False)  # the sites call the plain versions by these names
     gen = torch.Generator().manual_seed(0)
@@ -158,6 +163,11 @@ def test_keep_rows_repeat_as_in_jax(monkeypatch):
     for (shape, keep) in seen["tail"]:
         per = keep.reshape(2, -1)
         assert (per == per[:, :1]).all()
+    assert len(seen["block"]) == 2 * 9  # tiny_config: 3 x 3 plain blocks, two keeps each
+    for (shape, keep) in seen["block"]:
+        per = keep.reshape(2, -1)  # sample-major windows
+        assert shape[0] == keep.numel() and (per == per[:, :1]).all()
+    assert any((k != 1).any() for _, k in seen["block"])
     assert any((k != 1).any() for _, k in seen["attn"] + seen["tail"])
     for (shape, keep) in seen["vit_tail"]:
         slices = keep.reshape(3, -1)  # rows t * R + r

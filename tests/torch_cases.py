@@ -198,6 +198,28 @@ def mlp_train_case(seed, rows, c=C, m=MLP):
             (t(d(rows, c, std=1.0)),))
 
 
+def block_train_weights(w, heads=HEADS):
+    """torch-layout live parameters of ``swin_block_train`` from JAX-layout
+    attention and MLP weights."""
+    a, m = attn_train_weights(w["attn"], heads), mlp_train_weights(w["mlp"])
+    return {"ln1_g": a["ln_g"], "ln1_b": a["ln_b"], "w_qkv": a["w_qkv"], "b_qkv": a["b_qkv"],
+            "w_proj": a["w_proj"], "b_proj": a["b_proj"], "ln2_g": m["ln_g"],
+            "ln2_b": m["ln_b"], "w1": m["w1"], "b1": m["b1"], "w2": m["w2"], "b2": m["b2"],
+            "heads": heads}
+
+
+def block_train_case(seed, shifted, c=C, heads=HEADS, win=WIN, grid=GRID, m=None):
+    """(x, mb, params, keep1, keep2, (dy,)) for ``swin_block_train``: seeded
+    windows, a mask+bias of period 1 or nW, two different cycles of keep
+    factors per window and the cotangent."""
+    d = Draw(seed)
+    w = {"attn": attn_weights(d, c), "mlp": mlp_weights(d, c, m or 4 * c)}
+    mb, x = mask_bias(d, shifted, heads, win, grid), windows(d, c, win, grid)
+    r = x.shape[0]
+    return (t(x), torch.from_numpy(mb), block_train_weights(w, heads), keep_vector(r),
+            keep_vector(r + 1)[1:], (t(d(*x.shape, std=1.0)),))
+
+
 def rounded(obj, dtype):
     """Floating-point tensors (in dicts too) rounded to ``dtype`` and back to
     f32: the inputs of the f32 plain version a low-precision kernel is held
@@ -224,7 +246,8 @@ def run_with_grads(fn, args, cots, dtype=torch.float32):
             return leaf
         return obj
 
-    names = ("x", "mb", "", "keep") if len(args) == 4 else ("x", "", "keep")
+    names = {3: ("x", "", "keep"), 4: ("x", "mb", "", "keep"),
+             5: ("x", "mb", "", "keep", "keep")}[len(args)]
     inputs = [prep(a, n) for a, n in zip(args, names)]
     outs = fn(*inputs)
     outs = outs if isinstance(outs, tuple) else (outs,)
@@ -292,11 +315,11 @@ def _view(p, n, dtype):
 
 class ModelLib:
     """What csrc/gemm.cu, window_attention.cu, window_attention_bwd.cu,
-    train_rows.cu, cva_sample.cu and vit3_attention.cu compute, on the raw
-    buffers the wrappers pass."""
+    train_rows.cu, wgrad.cu, cva_sample.cu and vit3_attention.cu compute, on
+    the raw buffers the wrappers pass."""
 
-    def mumpy_gemm(self, x, w, bias, g, b, res, a_map, c_map, y, out, row_scale, aux, M, N,
-                   K, a_sum, a_seg, act, map_len, scale_div, dtype, stream):
+    def mumpy_gemm(self, x, w, bias, g, b, res, a_map, c_map, y, out, row_scale, aux,
+                   aux_out, M, N, K, a_sum, a_seg, act, map_len, scale_div, dtype, stream):
         dt = DTYPES[dtype]
         rows = torch.arange(M)
 
@@ -325,6 +348,8 @@ class ModelLib:
             f1 = _view(aux, M * N, dt).reshape(M, N)[c_rows].float()
             v = v * (0.5 * (1 + torch.erf(f1 * 0.5**0.5))
                      + f1 * torch.exp(-0.5 * f1 * f1) * (2 * torch.pi) ** -0.5)
+            if aux_out is not None:
+                _view(aux_out, M * N, dt).reshape(M, N)[c_rows] = F.gelu(f1).to(dt)
         yv = v.to(dt)
         if y is not None:
             _view(y, M * N, dt).reshape(M, N)[c_rows] = yv
@@ -336,6 +361,53 @@ class ModelLib:
                 s = _view(row_scale, -(-M // scale_div), torch.float32)
                 o = resid + s[rows // scale_div, None] * v
             _view(out, M * N, dt).reshape(M, N)[c_rows] = o.to(dt)
+        return 0
+
+    @staticmethod
+    def _splits(rows, per, ws, parts, outs, dt):
+        """Row splits of ``per`` rows: each split's f32 partials (``parts``
+        of a row slice, concatenated) to its slice of the workspace, or with
+        no workspace (one split) rounded into ``outs``."""
+        n = -(-rows // per)
+        chunks = [torch.cat([t.reshape(-1) for t in parts(slice(s * per, (s + 1) * per))])
+                  for s in range(n)]
+        if ws is not None:
+            _view(ws, n * chunks[0].numel(), torch.float32).copy_(torch.cat(chunks))
+            return 0
+        assert n == 1, "one split writes T directly"
+        at = 0
+        for p, size in outs:
+            _view(p, size, dt).copy_(chunks[0][at:at + size].to(dt))
+            at += size
+        return 0
+
+    def mumpy_gemm_tn(self, a, b, ws, dw, db, M, O, I, rows_per_split, dtype, stream):
+        dt = DTYPES[dtype]
+        A = _view(a, M * O, dt).reshape(M, O).float()
+        B = _view(b, M * I, dt).reshape(M, I).float()
+
+        def parts(rows):
+            return [A[rows].t() @ B[rows], A[rows].sum(0)]
+
+        return self._splits(M, rows_per_split, ws, parts, [(dw, O * I), (db, O)], dt)
+
+    def mumpy_col_sums(self, dh, x, mu, rstd, ws, dg, db, rows, C, rows_per_split, dtype,
+                       stream):
+        dt = DTYPES[dtype]
+        D = _view(dh, rows * C, dt).reshape(rows, C).float()
+        X = _view(x, rows * C, dt).reshape(rows, C).float()
+        m, rs = (_view(t, rows, torch.float32)[:, None] for t in (mu, rstd))
+
+        def parts(r):
+            return [(D[r] * (X[r] - m[r]) * rs[r]).sum(0), D[r].sum(0)]
+
+        return self._splits(rows, rows_per_split, ws, parts, [(dg, C), (db, C)], dt)
+
+    def mumpy_reduce_splits(self, ws, splits, len1, out1, len2, out2, dtype, stream):
+        dt = DTYPES[dtype]
+        total = _view(ws, splits * (len1 + len2), torch.float32).reshape(splits, -1).sum(0)
+        _view(out1, len1, dt).copy_(total[:len1].to(dt))
+        _view(out2, len2, dt).copy_(total[len1:].to(dt))
         return 0
 
     def mumpy_window_attention_bwd(self, qkv, do, mb, dqkv, dmb, R, N, H, hd, P, chunks,
