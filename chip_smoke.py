@@ -80,15 +80,51 @@ drop-path 0.2:
 11. ``python -m mumpy_tpu_torch.train``'s ``main`` for one epoch on
    synthetic 224^2 PNG clips (two streams, 12 clips per step, two steps, a
    val pass and the checkpoints), then ``mumpy_tpu_torch.serve``'s ``main``
-   on the ``weights_torch.pt`` it wrote, in f32 and in bf16.
+   on the ``weights_torch.pt`` it wrote, in f32, in bf16, and in bf16 with
+   ``-kernel_set attention`` (both CLIs on the card by default).
+
+The ``"attention"`` kernel set (the JAX package's ``MUMPY_FUSED_BLOCK=off
+MUMPY_PALLAS=on``: every layer op by op, only the window-attention core #7
+through a kernel, ``window_attention``), after phase 6 (a, b, d) and after
+phase 10 (c, d):
+
+a. capture every distinct ``window_attention`` instance of the flagship's
+   attention-set forward at batch 2 (one per stage, view and shift) and hold
+   the kernel's forward and backward launches against autograd of its plain
+   version on a seeded output gradient, in f32 and bf16: the output, d(qkv)
+   and d(mask+bias) by the largest error (phase 3's bounds) and by RMS error
+   over the tensor's RMS (the core adds no residual: f32 1e-5, bf16 2e-2).
+   Planted faults on the bf16 inputs must each be caught: the mask+bias
+   zeroed in the forward, the rowsum term dropped in the backward;
+b. the attention set's forward through ``make_serving_forward(...,
+   kernel_set="attention")``, kernel path and plain path: f32 logits within
+   1e-3 * max(1, max|logit|) of each other and of the blocks set's plain
+   path (phase 4: the same function), bf16 logits no further from the f32
+   ones than twice the plain path's, launches per forward window_attention
+   60 and every other kernel 0;
+c. one attention-set training step, kernel path against plain path, with
+   phase 8's bounds; the launches of one ``train_step``: window_attention
+   96 forward (the forward's 60, and 36 when the 18 stage-2 pairs under
+   ``torch.utils.checkpoint`` recompute in the backward, the JAX package's
+   remat) and 60 backward, every other kernel 0; phase 10's steps, step ms,
+   memory and profiled step in that set;
+d. bf16 frames/s at batch 32 of the attention set beside the blocks set's
+   (blocks, attention, attention plain, attention plain, attention,
+   blocks), then #7's ms per batch-32 bf16 forward and per bf16 12-clip step
+   (forward and backward, and the recomputed forwards) beside its plain
+   version's, ``torch.nn.functional.scaled_dot_product_attention``'s on the
+   same q, k, v with the mask+bias as its float ``attn_mask`` (the
+   ``library_ms``; the port never calls it) and its bound (bound by bytes at
+   N = 49: ~25 flops per byte).
 
 The weights are drawn with ``random_state_dict(..., fan_in=True)``: matrices
 at 1/sqrt(fan-in) and relative-position tables at unit scale, so every score,
 mask+bias term and branch is of order one at every width, and a kernel that
 dropped any of them would show.
 
-The second-to-last line of output is a JSON object with one entry per kernel;
-the last is ``{"ok": true, "device": {...}}``.  Run from the repository root:
+The second-to-last line of output is a JSON object with one entry per kernel
+(``window_attention`` with its per-step figures as ``step_*``); the last is
+``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py``.
 """
 
@@ -141,6 +177,14 @@ KEEPS = {"swin_block_train": 2, "attn_ln_train": 1, "ln_mlp_train": 1}  # traili
 TRAIN_CLIPS = 6  # per inpainting stream; two streams: 12 clips per step (DVI recipe)
 LOSS_TOL, GRAD_TOL = 1e-4, 1e-3  # kernel vs plain training step, f32
 ZERO_GRAD = 1e-5  # a gradient below this share of the whole one is zero to rounding
+# the "attention" kernel set: the window-attention kernel (#7) alone
+ATTN_INFO = (["window_attention.cu", "window_attention_bwd.cu"],
+             "mumpy_tpu/ops/pallas/window_attention.py:77")
+EXPECTED_ATTN_LAUNCHES = 60  # per forward: the 48 plain blocks and the 12 cross blocks
+# per train_step (forward, backward): the 60 of the forward, 36 more in the
+# backward (the 18 stage-2 pairs under torch.utils.checkpoint recompute their
+# forward, as the JAX package remats its scanned pairs), and 60 backward
+EXPECTED_ATTN_STEP = (96, 60)
 
 
 def log(*a):
@@ -261,6 +305,27 @@ def work(name, args):
         rows = x.numel() // c
         flops = 2 * rows * (4 * c * c + 2 * c * ops["mlp"]["w1"].shape[1]) + 12 * rows * c
     return flops, nbytes + out_bytes
+
+
+def serve_once(model, dev, clip, dtype, use_kernels, kernel_set, kernels):
+    """Probabilities from the serving forward with the launch counts of
+    ``kernels`` in that forward, and the logits of the same prepared model
+    (compared as logits: a probability near 0 or 1 keeps too few bits of
+    its logit)."""
+    from mumpy_tpu_torch.utils.serving import make_serving_forward
+
+    fwd = make_serving_forward(model, dev, dtype, use_kernels=use_kernels,
+                               kernel_set=kernel_set)
+    for k in kernels:
+        k.launches = 0
+    probs = fwd(clip)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in kernels}
+    with torch.inference_mode():
+        logit = model(clip.to(dev, dtype)).double()
+    if not torch.allclose(probs.double(), torch.sigmoid(logit), atol=1e-6, rtol=0):
+        raise RuntimeError("serving probabilities are not sigmoid(logits)")
+    return probs, counts, logit.cpu()
 
 
 def cast_ops(ops, dtype):
@@ -534,8 +599,10 @@ def train_work(name, args):
 
 
 def training_phases(cfg, dev, smi, rng):
-    """Phases 7-11 on the flagship ``cfg``.  Returns the three training kernels'
-    result entries, or None when a phase failed."""
+    """Phases 7-11 and c on the flagship ``cfg``.  Returns the three training
+    kernels' result entries and the window-attention kernel's timings per
+    step (``attention_step_times``) with its launches per step, or None when
+    a phase failed."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import torch_cases as tc
     from mumpy_tpu_torch import serve
@@ -543,6 +610,7 @@ def training_phases(cfg, dev, smi, rng):
     from mumpy_tpu_torch.ops.attn_ln_train import attn_ln_train
     from mumpy_tpu_torch.ops.ln_mlp_train import ln_mlp_train
     from mumpy_tpu_torch.ops.swin_block_train import swin_block_train
+    from mumpy_tpu_torch.ops.window_attention import window_attention
     from mumpy_tpu_torch.train import __main__ as train_cli
     from mumpy_tpu_torch.train.optim import OptimConfig, Optimizer
     from mumpy_tpu_torch.train.trainer import TrainState, _loss_for_batch, train_step
@@ -550,8 +618,8 @@ def training_phases(cfg, dev, smi, rng):
 
     train_kernels = {"swin_block_train": swin_block_train, "attn_ln_train": attn_ln_train,
                      "ln_mlp_train": ln_mlp_train}
-    serving_kernels = (swin_block.swin_block, swin_pair.swin_pair, attn_ln.attn_ln,
-                       ln_mlp.ln_mlp, cva.cva, vit3.vit3)
+    all_kernels = (swin_block.swin_block, swin_pair.swin_pair, attn_ln.attn_ln, ln_mlp.ln_mlp,
+                   cva.cva, vit3.vit3, window_attention, *train_kernels.values())
     b, size = 2 * TRAIN_CLIPS, cfg.image_size
     clip = torch.from_numpy(rng.standard_normal((b, 3, size, size, 3), dtype=np.float32))
     mask = np.zeros((b, size, size), np.float32)
@@ -651,9 +719,9 @@ def training_phases(cfg, dev, smi, rng):
         return None
 
     # ---- 8. one training step: kernel path vs plain path ----
-    def step_grads(use_kernels, dtype):
+    def step_grads(use_kernels, dtype, kernel_set):
         model.load_state_dict(init)
-        set_kernel_path(model, use_kernels)
+        set_kernel_path(model, use_kernels, kernel_set)
         model.zero_grad(set_to_none=True)
         loss, _ = _loss_for_batch(model, batch, generator(SEED + 1), True, dtype)
         loss.backward()
@@ -668,117 +736,155 @@ def training_phases(cfg, dev, smi, rng):
         num = sum((ga[k].double() - gb[k].double()).pow(2).sum() for k in gb)
         return (num / sum(gb[k].double().pow(2).sum() for k in gb)).sqrt().item()
 
-    loss_k, grads_k = step_grads(True, None)
-    loss_p, grads_p = step_grads(False, None)
-    _, grads_64 = step_grads(False, torch.float64)  # the reference: the plain path in f64
-    # Each path's f32 gradient is held against the f64 one by relative L2 of
-    # its own norm, except a gradient that is zero to rounding: below
-    # ZERO_GRAD of its share of the whole gradient (the RMS over all
-    # parameters times sqrt(size)), held to that share.  The CVA's key
-    # biases are such (softmax ignores a shift shared by all keys): 2e-8 to
-    # 6e-8 of their share at tiny_config on the CPU, where the smallest other
-    # gradient is 5.5e-3 of its share.  The kernel path's error must be
-    # within GRAD_TOL or twice the plain path's: a tensor summed with heavy
-    # cancellation (a relative-position table deep in the net) is that far
-    # off on any f32 path.
-    rms_all = (sum(g.double().pow(2).sum() for g in grads_64.values())
-               / sum(g.numel() for g in grads_64.values())).sqrt().item()
-    err_k, err_p, floored = {}, {}, {}
-    for k, g in grads_64.items():
-        own, share = g.double().norm().item(), rms_all * g.numel() ** 0.5
-        if own < ZERO_GRAD * share:
-            floored[k] = (rel_l2(grads_k[k], g, own), rel_l2(grads_p[k], g, own))
-            own = share
-        err_k[k], err_p[k] = rel_l2(grads_k[k], g, own), rel_l2(grads_p[k], g, own)
-    over = {k: e for k, e in err_k.items() if e > max(GRAD_TOL, 2 * err_p[k])}
-    wk, wp = max(err_k, key=err_k.get), max(err_p, key=err_p.get)
-    wr = max(err_k, key=lambda k: err_k[k] / max(err_p[k], 1e-30))
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"[train-step] f32 loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel err {loss_err:.3g}); "
-        f"gradients vs the f64 plain path, rel L2 per tensor: kernel path max {err_k[wk]:.3g} "
-        f"({wk}, plain {err_p[wk]:.3g}), median {float(np.median(list(err_k.values()))):.3g}; "
-        f"plain path max {err_p[wp]:.3g} ({wp}), median "
-        f"{float(np.median(list(err_p.values()))):.3g}; largest kernel / plain ratio "
-        f"{err_k[wr] / max(err_p[wr], 1e-30):.3g} ({wr}, {err_k[wr]:.3g}); "
-        f"{sum(2 * e > GRAD_TOL for e in err_p.values())} tensors with plain error over "
-        f"{GRAD_TOL / 2:g}; over the bound: {over or 'none'} ({len(err_k)} tensors)")
-    log(f"[train-step] {len(floored)} tensors zero to rounding, held to their share (kernel, "
-        f"plain errors against their own norm: "
-        f"{', '.join(f'{k} {a:.3g}, {b:.3g}' for k, (a, b) in floored.items())})")
-    del grads_k, grads_64
-    _, g16k = step_grads(True, torch.bfloat16)
-    e16k = all_l2(g16k, grads_p)
-    del g16k
-    _, g16p = step_grads(False, torch.bfloat16)
-    e16p = all_l2(g16p, grads_p)
-    del g16p, grads_p
-    log(f"[train-step] bf16 gradients vs f32 plain, all parameters: kernel path rel L2 "
-        f"{e16k:.4g}, plain path {e16p:.4g}")
-    if loss_err > LOSS_TOL or over or not e16k <= 2 * e16p:
-        log("[train-step] FAILED")
+    def check_step(kernel_set):
+        """Phase 8 (and phase c for the attention set): one step of the
+        kernel path against the plain path of ``kernel_set``."""
+        tag = f"[train-step {kernel_set}]"
+        loss_k, grads_k = step_grads(True, None, kernel_set)
+        loss_p, grads_p = step_grads(False, None, kernel_set)
+        # the reference: the plain path in f64
+        _, grads_64 = step_grads(False, torch.float64, kernel_set)
+        # Each path's f32 gradient is held against the f64 one by relative L2
+        # of its own norm, except a gradient that is zero to rounding: below
+        # ZERO_GRAD of its share of the whole gradient (the RMS over all
+        # parameters times sqrt(size)), held to that share.  The CVA's key
+        # biases are such (softmax ignores a shift shared by all keys): 2e-8
+        # to 6e-8 of their share at tiny_config on the CPU, where the smallest
+        # other gradient is 5.5e-3 of its share.  The kernel path's error must
+        # be within GRAD_TOL or twice the plain path's: a tensor summed with
+        # heavy cancellation (a relative-position table deep in the net) is
+        # that far off on any f32 path.
+        rms_all = (sum(g.double().pow(2).sum() for g in grads_64.values())
+                   / sum(g.numel() for g in grads_64.values())).sqrt().item()
+        err_k, err_p, floored = {}, {}, {}
+        for k, g in grads_64.items():
+            own, share = g.double().norm().item(), rms_all * g.numel() ** 0.5
+            if own < ZERO_GRAD * share:
+                floored[k] = (rel_l2(grads_k[k], g, own), rel_l2(grads_p[k], g, own))
+                own = share
+            err_k[k], err_p[k] = rel_l2(grads_k[k], g, own), rel_l2(grads_p[k], g, own)
+        over = {k: e for k, e in err_k.items() if e > max(GRAD_TOL, 2 * err_p[k])}
+        wk, wp = max(err_k, key=err_k.get), max(err_p, key=err_p.get)
+        wr = max(err_k, key=lambda k: err_k[k] / max(err_p[k], 1e-30))
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        log(f"{tag} f32 loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel err "
+            f"{loss_err:.3g}); gradients vs the f64 plain path, rel L2 per tensor: kernel "
+            f"path max {err_k[wk]:.3g} ({wk}, plain {err_p[wk]:.3g}), median "
+            f"{float(np.median(list(err_k.values()))):.3g}; plain path max {err_p[wp]:.3g} "
+            f"({wp}), median {float(np.median(list(err_p.values()))):.3g}; largest kernel / "
+            f"plain ratio {err_k[wr] / max(err_p[wr], 1e-30):.3g} ({wr}, {err_k[wr]:.3g}); "
+            f"{sum(2 * e > GRAD_TOL for e in err_p.values())} tensors with plain error over "
+            f"{GRAD_TOL / 2:g}; over the bound: {over or 'none'} ({len(err_k)} tensors)")
+        log(f"{tag} {len(floored)} tensors zero to rounding, held to their share (kernel, "
+            f"plain errors against their own norm: "
+            f"{', '.join(f'{k} {a:.3g}, {b:.3g}' for k, (a, b) in floored.items())})")
+        del grads_k, grads_64
+        _, g16k = step_grads(True, torch.bfloat16, kernel_set)
+        e16k = all_l2(g16k, grads_p)
+        del g16k
+        _, g16p = step_grads(False, torch.bfloat16, kernel_set)
+        e16p = all_l2(g16p, grads_p)
+        del g16p, grads_p
+        log(f"{tag} bf16 gradients vs f32 plain, all parameters: kernel path rel L2 "
+            f"{e16k:.4g}, plain path {e16p:.4g}")
+        if loss_err > LOSS_TOL or over or not e16k <= 2 * e16p:
+            log(f"{tag} FAILED")
+            return False
+        return True
+
+    if not check_step("blocks"):
         return None
 
     # ---- 9. launch counts of one train_step (the main path) ----
-    model.load_state_dict(init)
-    set_kernel_path(model, True)
-    state = TrainState(model, Optimizer(model.named_parameters(), OptimConfig(), iter_max=100))
-    for k in (*serving_kernels, *train_kernels.values()):
-        k.launches = 0
-        if hasattr(k, "backward_launches"):
-            k.backward_launches = 0
-    train_step(state, batch, generator(SEED + 2))
-    torch.cuda.synchronize()
-    counts = {n: (k.launches, k.backward_launches) for n, k in train_kernels.items()}
-    serving_counts = {k.__name__: k.launches for k in serving_kernels}
-    log(f"[train-main] launches per train_step (forward, backward): {counts}; serving "
-        f"kernels {serving_counts}")
-    if counts != EXPECTED_TRAIN_LAUNCHES or any(serving_counts.values()):
+    def step_launches(kernel_set):
+        """Launches (forward, backward) of one kernel-path ``train_step``."""
+        model.load_state_dict(init)
+        set_kernel_path(model, True, kernel_set)
+        state = TrainState(model, Optimizer(model.named_parameters(), OptimConfig(),
+                                            iter_max=100))
+        for k in all_kernels:
+            k.launches = 0
+            if hasattr(k, "backward_launches"):
+                k.backward_launches = 0
+        train_step(state, batch, generator(SEED + 2))
+        torch.cuda.synchronize()
+        return {k.__name__: (k.launches, getattr(k, "backward_launches", 0))
+                for k in all_kernels}
+
+    counts = step_launches("blocks")
+    log(f"[train-main] launches per train_step (forward, backward): {counts}")
+    if counts != {**dict.fromkeys(counts, (0, 0)), **EXPECTED_TRAIN_LAUNCHES}:
         log("[train-main] FAILED")
         return None
 
     # ---- 10. steps on one batch: the loss falls; step time and memory ----
-    for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
-        model.load_state_dict(init)
-        set_kernel_path(model, True)
-        state = TrainState(model, Optimizer(model.named_parameters(), OptimConfig(),
-                                            iter_max=100))
-        gen = generator(SEED + 3)
-        losses = [float(train_step(state, batch, gen, dtype)["total"]) for _ in range(4)]
-        falls = all(np.isfinite(losses)) and losses[-1] < losses[0]
-        log(f"[train-main] {tag} losses over 4 steps on one batch (kernel path): "
-            f"{[round(v, 5) for v in losses]} {'falling' if falls else 'NOT FALLING'}")
-        if not falls:
-            log("[train-main] FAILED")
-            return None
-        step_ms = {False: [], True: []}
-        for use_kernels in (False, True, True, False):
-            set_kernel_path(model, use_kernels)
-            torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: train_step(state, batch, gen, dtype), reps=3)
-            step_ms[use_kernels].append(ms)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            log(f"[train-time] {tag} {'kernel' if use_kernels else 'plain'} path: "
-                f"{ms:.1f} ms/step at {b} clips, peak {peak:.2f} GiB ({smi})")
-        for use_kernels in (True, False):
-            set_kernel_path(model, use_kernels)
-            kernels = device_kernels(lambda: train_step(state, batch, gen, dtype))
-            busy = sum(t for t, _ in kernels.values())
-            wall = float(np.mean(step_ms[use_kernels]))
-            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:4]
-            log(f"[train-profile] {tag} {'kernel' if use_kernels else 'plain'} path: device "
-                f"{busy:.1f} ms of the {wall:.1f} ms step, idle {100 - 100 * busy / wall:.1f}%; "
-                f"{sum(n for _, n in kernels.values())} kernel launches; longest: "
-                + "; ".join(f"{t:.1f} ms x{n} {k[:60]}" for k, (t, n) in top) + f" ({smi})")
+    def run_steps(kernel_set):
+        """Four steps in f32 and bf16 with the loss falling, step ms of both
+        paths (plain, kernel, kernel, plain), one profiled step each."""
+        tag = "" if kernel_set == "blocks" else f" {kernel_set} set"
+        for dtype, dname in ((None, "f32"), (torch.bfloat16, "bf16")):
+            model.load_state_dict(init)
+            set_kernel_path(model, True, kernel_set)
+            state = TrainState(model, Optimizer(model.named_parameters(), OptimConfig(),
+                                                iter_max=100))
+            gen = generator(SEED + 3)
+            losses = [float(train_step(state, batch, gen, dtype)["total"]) for _ in range(4)]
+            falls = all(np.isfinite(losses)) and losses[-1] < losses[0]
+            log(f"[train-main{tag}] {dname} losses over 4 steps on one batch (kernel path): "
+                f"{[round(v, 5) for v in losses]} {'falling' if falls else 'NOT FALLING'}")
+            if not falls:
+                log(f"[train-main{tag}] FAILED")
+                return False
+            step_ms = {False: [], True: []}
+            for use_kernels in (False, True, True, False):
+                set_kernel_path(model, use_kernels, kernel_set)
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: train_step(state, batch, gen, dtype), reps=3)
+                step_ms[use_kernels].append(ms)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                log(f"[train-time{tag}] {dname} {'kernel' if use_kernels else 'plain'} path: "
+                    f"{ms:.1f} ms/step at {b} clips, peak {peak:.2f} GiB ({smi})")
+            for use_kernels in (True, False):
+                set_kernel_path(model, use_kernels, kernel_set)
+                kernels = device_kernels(lambda: train_step(state, batch, gen, dtype))
+                busy = sum(t for t, _ in kernels.values())
+                wall = float(np.mean(step_ms[use_kernels]))
+                top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:4]
+                log(f"[train-profile{tag}] {dname} {'kernel' if use_kernels else 'plain'} "
+                    f"path: device {busy:.1f} ms of the {wall:.1f} ms step, idle "
+                    f"{100 - 100 * busy / wall:.1f}%; "
+                    f"{sum(n for _, n in kernels.values())} kernel launches; longest: "
+                    + "; ".join(f"{t:.1f} ms x{n} {k[:60]}" for k, (t, n) in top)
+                    + f" ({smi})")
+        return True
+
+    if not run_steps("blocks"):
+        return None
     for name, (k_ms, p_ms, b_ms, _, _, k32, b32, d_ms) in times.items():
         log(f"[train-time] {name}: kernel {k_ms:.3f} ms ({d_ms:.3f} ms by direct launches, "
             f"no autograd), plain {p_ms:.3f} ms, bound {b_ms:.3f} ms per bf16 step (forward + "
             f"backward); f32 kernel {k32:.3f} ms, bound {b32:.3f} ms ({smi})")
-    del state, model
+
+    # ---- c. the attention set: one step kernel vs plain, launches, steps ----
+    if not check_step("attention"):
+        return None
+    attn_counts = step_launches("attention")
+    log(f"[train-main attention set] launches per train_step (forward, backward): "
+        f"{attn_counts} (forward: {EXPECTED_ATTN_STEP[0] - EXPECTED_ATTN_LAUNCHES} of the "
+        f"{EXPECTED_ATTN_STEP[0]} recompute the checkpointed stage-2 pairs in the backward)")
+    if attn_counts != {**dict.fromkeys(attn_counts, (0, 0)),
+                       "window_attention": EXPECTED_ATTN_STEP}:
+        log("[train-main attention set] FAILED")
+        return None
+    if not run_steps("attention"):
+        return None
+    attn_step = attention_step_times(model, init, batch, generator(SEED + 4), smi)
+    del model
     torch.cuda.empty_cache()
 
     # ---- 11. the train CLI, then serve on its weights, in f32 and bf16 ----
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
-    for flags in ((), ("--bf16",)):
+    for flags in ((), ("--bf16",), ("--bf16", "-kernel_set", "attention")):
         shutil.rmtree(root, ignore_errors=True)
         write_synthetic_clips(root, rng, size)
         res = root / "results"
@@ -792,7 +898,7 @@ def training_phases(cfg, dev, smi, rng):
                     "-seq_dir", str(root / "vi"), "-batch_size", str(TRAIN_CLIPS), *flags])
         n_masks = sum(len(files) for _, _, files in os.walk(res / "smoke" / "masks_davis"))
         weights = (res / "smoke" / "weights_torch.pt").exists()
-        log(f"[train-cli] {'bf16' if flags else 'f32'}: one epoch trained in {t1 - t0:.1f} s "
+        log(f"[train-cli] {' '.join(flags) or 'f32'}: one epoch trained in {t1 - t0:.1f} s "
             f"(checkpoints included) and served: weights_torch.pt written {weights}, "
             f"{n_masks} masks")
         shutil.rmtree(root, ignore_errors=True)
@@ -811,7 +917,301 @@ def training_phases(cfg, dev, smi, rng):
              "direct_ms": times[name][7],
              # no single PyTorch call computes either contract (forward and backward)
              "library_ms": None}
-            for name in train_kernels]
+            for name in train_kernels], {**attn_step,
+                                         "step_launches": attn_counts["window_attention"]}
+
+
+# ---- the "attention" kernel set: the window-attention kernel (#7) ----
+
+class AttnCapture:
+    """Record the arguments of every distinct window-attention instance
+    (qkv shape, mask+bias shape) that the plain path calls while the
+    context is open, with how often each ran in ``stage`` ("forward", or
+    "recompute" while a backward recomputes checkpointed pairs)."""
+
+    stage = "forward"
+
+    def __enter__(self):
+        from mumpy_tpu_torch.models import swin
+
+        self.mod, self.plain, self.instances = swin, swin.window_attention_plain, {}
+
+        def rec(qkv, mb, heads):
+            key = (tuple(qkv.shape), tuple(mb.shape))
+            entry = self.instances.setdefault(
+                key, [(qkv.detach().clone(), mb.detach().clone(), heads),
+                      {"forward": 0, "recompute": 0}])
+            entry[1][self.stage] += 1
+            return self.plain(qkv, mb, heads)
+
+        swin.window_attention_plain = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.window_attention_plain = self.plain
+
+
+def attn_run(fn, qkv, mb, heads, do, dtype):
+    """``fn(qkv, mb, heads)`` and its autograd backward of ``do`` on copies
+    cast to ``dtype``: {"out", "dqkv", "dmb"} in f32."""
+    q = qkv.detach().to(dtype).clone().requires_grad_()
+    m = mb.detach().to(dtype).clone().requires_grad_()
+    with torch.enable_grad():
+        out = fn(q, m, heads)
+        out.backward(do.to(dtype))
+    return {"out": out.detach().float(), "dqkv": q.grad.float(), "dmb": m.grad.float()}
+
+
+def check_attention_instance(qkv, mb, heads, seed):
+    """Phase a on one instance: the kernel's forward and backward launches
+    (uncounted) against autograd of the plain version in f32 and bf16, and
+    the planted faults on the bf16 inputs.  Returns (ok, f32 largest
+    absolute error, log text)."""
+    from mumpy_tpu_torch.ops import window_attention as wa
+    from mumpy_tpu_torch.ops.attn_ln import pad_mask_bias
+
+    r, n, c3 = qkv.shape
+    crng = np.random.default_rng(seed)
+    do = torch.from_numpy(crng.standard_normal((r, n, c3 // 3), dtype=np.float32)).to(qkv.device)
+    ref32 = attn_run(wa.window_attention_plain, qkv, mb, heads, do, torch.float32)
+    got32 = attn_run(wa.launch_window_attention, qkv, mb, heads, do, torch.float32)
+    q16, mb16, do16 = (t.to(torch.bfloat16) for t in (qkv, mb, do))
+    ref16 = attn_run(wa.window_attention_plain, q16.float(), mb16.float(), heads, do16.float(),
+                     torch.float32)
+    got16 = attn_run(wa.launch_window_attention, q16, mb16, heads, do16, torch.bfloat16)
+    torch.cuda.synchronize()
+    # the core adds no residual: each whole tensor is the branch (x, dres = 0)
+    m32, b32 = train_errors(got32, ref32, 0.0, 0.0)
+    m16, b16 = train_errors(got16, ref16, 0.0, 0.0)
+    abs32 = max(rel_err(got32[k], r)[0] for k, r in ref32.items())
+    good = m32 <= F32_TOL and b32 <= F32_BRANCH_TOL and m16 <= BF16_TOL and b16 <= BF16_BRANCH_TOL
+    with torch.no_grad():
+        bad_out = wa.launch_window_attention(q16, torch.zeros_like(mb16), heads).float()
+        bad_dqkv = wa.launch_window_attention_bwd(q16, pad_mask_bias(mb16), do16, heads,
+                                                  rowsum=False)[0].float()
+    text = ""
+    for label, bad, key in (("mask+bias zeroed", bad_out, "out"),
+                            ("rowsum dropped", bad_dqkv, "dqkv")):
+        bc = train_errors({key: bad}, {key: ref16[key]}, 0.0, 0.0)[1]
+        caught = bc > BF16_BRANCH_TOL
+        good &= caught
+        text += f"; {label} {bc:.3g} {'caught' if caught else 'NOT CAUGHT'}"
+    text = (f"max err / scale f32 {m32:.3g} bf16 {m16:.3g}; RMS err / RMS f32 {b32:.3g} "
+            f"bf16 {b16:.3g}{text}")
+    return good, abs32, text
+
+
+def sdpa_operands(qkv, mb, heads):
+    """q, k, v (R, H, N, hd) and the float mask (R, H, N, N) in qkv's dtype
+    of the same function, for ``torch.nn.functional.scaled_dot_product_attention``
+    (the yardstick of ``library_ms``; the port never calls it)."""
+    r, n, c3 = qkv.shape
+    hd = c3 // 3 // heads
+    q, k, v = (t.contiguous() for t in qkv.reshape(r, n, 3, heads, hd).permute(2, 0, 3, 1, 4))
+    p = mb.shape[0]
+    mask = mb.to(qkv.dtype)[None].expand(r // p, p, heads, n, n).reshape(r, heads, n, n)
+    return q, k, v, mask.contiguous()
+
+
+def attn_work(qkv, mb, backward):
+    """(flops, bytes) of the forward (with ``backward``: forward and
+    backward) at these inputs: q.k^T and P.v (and dP, dV, dQ, dK), 2 N^2 hd
+    multiply-adds each per window and head; each input (qkv, mb; the output
+    gradient) read once and each output (o; dqkv, dmb) written once, mb in
+    qkv's dtype."""
+    r, n, c3 = qkv.shape
+    c, e = c3 // 3, qkv.element_size()
+    qkv_b, mb_b, o_b = qkv.numel() * e, mb.numel() * e, r * n * c * e
+    if backward:
+        return 12 * r * n * n * c, 2 * (qkv_b + mb_b + o_b)
+    return 4 * r * n * n * c, qkv_b + mb_b + o_b
+
+
+def attn_closures(qkv, mb, heads, do):
+    """{(path, "fwd" | "fwdbwd"): closure} for timing the kernel's launches
+    (uncounted), the plain version and scaled_dot_product_attention on the
+    same inputs; the forward-only closures run without autograd."""
+    import torch.nn.functional as F
+
+    from mumpy_tpu_torch.ops import window_attention as wa
+
+    sq, sk, sv, smask = sdpa_operands(qkv, mb, heads)
+    sdo = do.reshape(do.shape[0], do.shape[1], heads, -1).transpose(1, 2).contiguous()
+    fns = {"kernel": wa.launch_window_attention, "plain": wa.window_attention_plain}
+    out = {}
+    for path, fn in fns.items():
+        leaves = [qkv.detach().clone().requires_grad_(), mb.detach().clone().requires_grad_()]
+
+        def fwd(fn=fn):
+            with torch.no_grad():
+                fn(qkv, mb, heads)
+
+        def fwdbwd(fn=fn, leaves=leaves):
+            torch.autograd.grad(fn(*leaves, heads), leaves, do)
+
+        out[(path, "fwd")], out[(path, "fwdbwd")] = fwd, fwdbwd
+    sleaves = [t.detach().clone().requires_grad_() for t in (sq, sk, sv, smask)]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(sq, sk, sv, attn_mask=smask)
+
+    def sdpa_fwdbwd():
+        o = F.scaled_dot_product_attention(*sleaves[:3], attn_mask=sleaves[3])
+        torch.autograd.grad(o, sleaves, sdo)
+
+    out[("sdpa", "fwd")], out[("sdpa", "fwdbwd")] = sdpa_fwd, sdpa_fwdbwd
+    return out
+
+
+def attention_serving_phases(model, dev, smi, clip2, clip32, blocks_logits, kernels):
+    """Phases a, b and d (serving) of the attention set on the serving
+    ``model``: every window-attention instance of the batch-2 forward,
+    kernel vs plain (forward and backward, planted faults); the forward,
+    kernel path vs plain path vs the blocks set's f32 logits
+    ``blocks_logits``, its launch counts over ``kernels``; bf16 frames/s
+    beside the blocks set's, and #7's ms per batch-32 bf16 forward beside
+    its plain version's, scaled_dot_product_attention's and its bound.
+    Returns the kernel's result entry, or None when a phase failed."""
+    import torch.nn.functional as F
+
+    from mumpy_tpu_torch.ops import window_attention as wa
+    from mumpy_tpu_torch.utils.serving import make_serving_forward
+
+    # ---- a. every window-attention instance vs its plain version ----
+    make_serving_forward(model, dev, torch.float32, use_kernels=False, kernel_set="attention")
+    with AttnCapture() as cap, torch.no_grad():
+        model(clip2.to(dev))
+    ok, err = True, 0.0
+    for i, ((qshape, mshape), ((qkv, mb, heads), count)) in enumerate(cap.instances.items()):
+        good, abs32, text = check_attention_instance(qkv, mb, heads, SEED + 100 + i)
+        ok &= good
+        err = max(err, abs32)
+        log(f"[attn-kernel] window_attention qkv{qshape} mb{mshape} x{count['forward']}: "
+            f"{text} {'ok' if good else 'FAIL'}")
+    if not ok:
+        log("[attn-kernel] FAILED: the window-attention kernel disagrees with its plain "
+            "version, or a planted fault went unseen")
+        return None
+    del cap
+
+    # ---- b. the attention set's forward: kernel path vs plain path ----
+    def serve(dtype, use_kernels):
+        return serve_once(model, dev, clip2, dtype, use_kernels, "attention", kernels)
+
+    probs, launches, a = serve(torch.float32, True)
+    _, plain_counts, b = serve(torch.float32, False)
+    err_kp, scale = rel_err(a, b)
+    err_kb = rel_err(a, blocks_logits)[0]
+    finite = bool(torch.isfinite(probs).all()) and tuple(probs.shape) == (2, 224, 224, 1)
+    want = {**dict.fromkeys(launches, 0), "window_attention": EXPECTED_ATTN_LAUNCHES}
+    log(f"[attn-main] launches per forward: {launches}; plain path {plain_counts}")
+    log(f"[attn-main] f32 logits kernel vs plain: max err {err_kp:.3g}; kernel path vs the "
+        f"blocks set's plain path: {err_kb:.3g} (scale {scale:.3g}); probabilities finite "
+        f"{finite}")
+    err16 = {use_kernels: rel_err(serve(torch.bfloat16, use_kernels)[2], b)[0]
+             for use_kernels in (True, False)}
+    log(f"[attn-main] bf16 logits vs f32: kernel path max err {err16[True]:.3g}, plain path "
+        f"{err16[False]:.3g} (scale {scale:.3g})")
+    if (launches != want or any(plain_counts.values()) or err_kp > LOGIT_TOL * scale
+            or err_kb > LOGIT_TOL * scale or not finite or not err16[True] <= 2 * err16[False]):
+        log("[attn-main] FAILED")
+        return None
+
+    # ---- d. bf16 frames/s at batch 32 beside the blocks set; #7's time ----
+    x = clip32.to(dev)
+    for kernel_set, use_kernels in (("blocks", True), ("attention", True), ("attention", False),
+                                    ("attention", False), ("attention", True), ("blocks", True)):
+        fwd = make_serving_forward(model, dev, torch.bfloat16, use_kernels=use_kernels,
+                                   kernel_set=kernel_set)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: fwd(x), reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[attn-fps] bf16 batch 32 {kernel_set} set {'kernel' if use_kernels else 'plain'} "
+            f"path: {ms:.1f} ms/batch, {32e3 / ms:.1f} frames/s, peak {peak:.2f} GiB ({smi})")
+    make_serving_forward(model, dev, torch.bfloat16, use_kernels=False, kernel_set="attention")
+    with AttnCapture() as cap, torch.no_grad():
+        model(x.to(torch.bfloat16))
+    row = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms"), 0.0)
+    sdpa_err = 0.0
+    for (qkv, mb, heads), count in cap.instances.values():
+        n = count["forward"]
+        do = torch.zeros(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, device=dev,
+                         dtype=qkv.dtype)
+        fns = attn_closures(qkv, mb, heads, do)
+        row["ms"] += n * cuda_ms(fns[("kernel", "fwd")], reps=10)
+        row["plain_ms"] += n * cuda_ms(fns[("plain", "fwd")], reps=10)
+        row["library_ms"] += n * cuda_ms(fns[("sdpa", "fwd")], reps=10)
+        flops, nbytes = attn_work(qkv, mb, backward=False)
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row["bound_ms"] += n * max(t_ops, t_bytes)
+        row["ops_ms"] += n * t_ops
+        row["bytes_ms"] += n * t_bytes
+        with torch.no_grad():
+            o = wa.launch_window_attention(qkv, mb, heads)
+            sq, sk, sv, smask = sdpa_operands(qkv, mb, heads)
+            so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=smask)
+            e, s = rel_err(so.transpose(1, 2).reshape(o.shape), o)
+            sdpa_err = max(sdpa_err, e / s)
+    log(f"[attn-time] window_attention: kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} "
+        f"ms, scaled_dot_product_attention {row['library_ms']:.3f} ms (its output vs the "
+        f"kernel's: max err / scale {sdpa_err:.3g}), bound {row['bound_ms']:.3f} ms (operations "
+        f"{row['ops_ms']:.3f}, bytes {row['bytes_ms']:.3f}) per bf16 batch-32 forward "
+        f"({EXPECTED_ATTN_LAUNCHES} launches; {smi})")
+    return {"name": "window_attention", "route": "cuda",
+            "source": "mumpy_tpu_torch/ops/window_attention.py",
+            "cuda_sources": [f"mumpy_tpu_torch/csrc/{f}" for f in ATTN_INFO[0]],
+            "replaces": ATTN_INFO[1], "launches": launches["window_attention"],
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes",
+            "library_ms": row["library_ms"]}
+
+
+def attention_step_times(model, init, batch, generator, smi):
+    """Phase d (training): #7's ms per bf16 12-clip step, forward and
+    backward of every instance the attention set's step runs (the forward's
+    calls with their backward, and the checkpointed pairs' recompute of
+    their forward), beside the plain version's, scaled_dot_product_attention's
+    and the bound of the forward and backward's work (not the recompute's)."""
+    from mumpy_tpu_torch.train.trainer import _loss_for_batch
+    from mumpy_tpu_torch.utils.serving import set_kernel_path
+
+    model.load_state_dict(init)
+    set_kernel_path(model, False, "attention")
+    with AttnCapture() as cap:
+        loss, _ = _loss_for_batch(model, batch, generator, True, torch.bfloat16)
+        cap.stage = "recompute"
+        loss.backward()
+    model.zero_grad(set_to_none=True)
+    del loss
+    row = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms"), 0.0)
+    crng = np.random.default_rng(SEED + 5)
+    for (qkv, mb, heads), count in cap.instances.values():
+        n_f, n_r = count["forward"], count["recompute"]
+        do = torch.from_numpy(crng.standard_normal(
+            (qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3), dtype=np.float32)).to(
+            qkv.device, qkv.dtype)
+        fns = attn_closures(qkv, mb, heads, do)
+        for key, path in (("ms", "kernel"), ("plain_ms", "plain"), ("library_ms", "sdpa")):
+            row[key] += n_f * cuda_ms(fns[(path, "fwdbwd")], reps=5)
+            if n_r:
+                row[key] += n_r * cuda_ms(fns[(path, "fwd")], reps=5)
+        flops, nbytes = attn_work(qkv, mb, backward=True)
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        row["bound_ms"] += n_f * max(t_ops, t_bytes)
+        row["ops_ms"] += n_f * t_ops
+        row["bytes_ms"] += n_f * t_bytes
+    counts = [c for _, c in cap.instances.values()]
+    log(f"[attn-train-time] window_attention: kernel {row['ms']:.3f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, scaled_dot_product_attention {row['library_ms']:.3f} ms, "
+        f"bound {row['bound_ms']:.3f} ms (operations {row['ops_ms']:.3f}, bytes "
+        f"{row['bytes_ms']:.3f}) per bf16 12-clip step ({sum(c['forward'] for c in counts)} "
+        f"forward + backward, {sum(c['recompute'] for c in counts)} recomputed forwards; "
+        f"{smi})")
+    return {"step_ms": row["ms"], "step_plain_ms": row["plain_ms"],
+            "step_library_ms": row["library_ms"], "step_bound_ms": row["bound_ms"],
+            "step_bound_by": "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"}
 
 
 def device_kernels(fn):
@@ -898,10 +1298,16 @@ def main() -> int:
     from mumpy_tpu_torch.ops.ln_mlp import ln_mlp
     from mumpy_tpu_torch.ops.swin_block import swin_block
     from mumpy_tpu_torch.ops.swin_pair import swin_pair
+    from mumpy_tpu_torch.ops.attn_ln_train import attn_ln_train
+    from mumpy_tpu_torch.ops.ln_mlp_train import ln_mlp_train
+    from mumpy_tpu_torch.ops.swin_block_train import swin_block_train
     from mumpy_tpu_torch.ops.vit3 import vit3
+    from mumpy_tpu_torch.ops.window_attention import window_attention
     from mumpy_tpu_torch.utils.serving import make_serving_forward
 
     KERNELS = (swin_block, swin_pair, attn_ln, ln_mlp, cva, vit3)
+    # every kernel wrapper: a serving forward launches those of its set only
+    ALL_KERNELS = (*KERNELS, window_attention, swin_block_train, attn_ln_train, ln_mlp_train)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -987,21 +1393,7 @@ def main() -> int:
 
     # ---- 4. main path: kernel path vs plain path, launch counts ----
     def serve(dtype, use_kernels):
-        """Probabilities from the serving forward with the kernels' launch
-        counts of that forward, and the logits of the same prepared model
-        (compared as logits: a probability near 0 or 1 keeps too few bits of
-        its logit)."""
-        fwd = make_serving_forward(model, dev, dtype, use_kernels=use_kernels)
-        for k in KERNELS:
-            k.launches = 0
-        probs = fwd(clip2)
-        torch.cuda.synchronize()
-        counts = {k.__name__: k.launches for k in KERNELS}
-        with torch.inference_mode():
-            logit = model(clip2.to(dev, dtype)).double()
-        if not torch.allclose(probs.double(), torch.sigmoid(logit), atol=1e-6, rtol=0):
-            raise RuntimeError("serving probabilities are not sigmoid(logits)")
-        return probs, counts, logit.cpu()
+        return serve_once(model, dev, clip2, dtype, use_kernels, "blocks", ALL_KERNELS)
 
     probs, launches, a = serve(torch.float32, True)
     _, plain_counts, b = serve(torch.float32, False)
@@ -1013,7 +1405,8 @@ def main() -> int:
     finite = bool(torch.isfinite(probs).all()) and tuple(probs.shape) == (2, 224, 224, 1)
     log(f"[main] f32 logits kernel vs plain: max err {err:.3g} (scale {scale:.3g}); "
         f"probabilities shape {tuple(probs.shape)} finite {finite}")
-    if launches != EXPECTED_LAUNCHES or err > LOGIT_TOL * scale or not finite:
+    if (launches != {**dict.fromkeys(launches, 0), **EXPECTED_LAUNCHES}
+            or err > LOGIT_TOL * scale or not finite):
         log("[main] FAILED")
         return 1
     # the bf16 forward that phase 5 times, against the f32 logits
@@ -1061,12 +1454,20 @@ def main() -> int:
             f"per bf16 batch-32 forward ({smi})")
 
     del fwd, cap, model
+
+    # ---- a, b, d. the attention set: #7 instances, forward, frames/s ----
+    model = build_model(cfg, dev)  # phase 4's f32 weights, not phases 5-6's bf16 cast
+    attn_entry = attention_serving_phases(model, dev, smi, clip2, clip32, b, ALL_KERNELS)
+    if attn_entry is None:
+        return 1
+    del model
     torch.cuda.empty_cache()
 
-    # ---- 7-11. the training path ----
-    train_entries = training_phases(cfg, dev, smi, rng)
-    if train_entries is None:
+    # ---- 7-11 and c. the training path ----
+    trained = training_phases(cfg, dev, smi, rng)
+    if trained is None:
         return 1
+    train_entries, attn_step = trained
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"mumpy_tpu_torch/ops/{name}.py",
@@ -1077,7 +1478,7 @@ def main() -> int:
          "bound_by": "operations" if times[name][3] >= times[name][4] else "bytes",
          # no single PyTorch call computes any of these whole contracts
          "library_ms": None}
-        for name in EXPECTED_LAUNCHES] + train_entries}))
+        for name in EXPECTED_LAUNCHES] + train_entries + [{**attn_entry, **attn_step}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

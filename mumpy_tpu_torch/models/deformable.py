@@ -9,7 +9,10 @@ projection run through the ``cva`` kernel.  Reference quirks kept: queries
 tiled ``ratio`` times in ``repeat`` order, the fold over ``ratio``
 consecutive rows, the proj_out bias added after the fold, and the tanh bound
 of the offsets.  In train mode the whole CVA runs by plain autograd on its
-live parameters: the JAX package's CVA kernel is inference-only.  Parameter names follow the reference state_dict
+live parameters: the JAX package's CVA kernel is inference-only.  In the
+``"attention"`` kernel set (``models/swin.py``) it runs that way in eval mode
+too: the JAX package runs the CVA in XLA there, so its plain version is on
+the card's path.  Parameter names follow the reference state_dict
 (``proj_q``... as 1x1 convs, ``conv_offset.{0,1,3}``).
 """
 
@@ -91,7 +94,7 @@ class SwinDAttention(KernelSite):
         pos = self.sample_positions(x1).reshape(b1, g, n, 2).permute(1, 0, 2, 3).float()
         gy = ((pos[..., 0] + 1.0) * 0.5 * (ws - 1)).contiguous()  # absolute pixels
         gx = ((pos[..., 1] + 1.0) * 0.5 * (ws - 1)).contiguous()
-        if self.training:
+        if self.training or self.kernel_set == "attention":
             out = cva_plain(x1, x2, gy, gx, self.build_ops(live=True))
         else:
             fn = cva if self.use_kernels else cva_plain

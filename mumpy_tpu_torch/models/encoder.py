@@ -28,6 +28,15 @@ depths))`` for all three views, ``dpr[base]`` for the cross block of a stage
 and ``dpr[base + i]`` for its plain block i, ``linspace(0, rate, layers)``
 for the ViT.  Every keep factor is drawn from
 the ``generator`` the forward is given.
+
+In the ``"attention"`` kernel set (the JAX package's ``MUMPY_FUSED_BLOCK=off
+MUMPY_PALLAS=on``; ``models/swin.py``) the encoder runs op by op on live
+parameters in eval and in train mode: every plain block one by one
+(``SwinBlock.op_forward``, no pairs, as the JAX package's stage-2 pairs are
+off there), the cross-view blocks' attention half through the same
+``window_attend``, and only the window-attention core through a kernel.
+Training keeps the JAX package's remat of the scanned pair bodies on both
+paths of that set: each (shifted, plain) pair under ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ from ..ops.ln_mlp_train import ln_mlp_train, ln_mlp_train_plain, ln_mlp_weights
 from ..ops.window import partition_tokens, unpartition_tokens
 from .deformable import CVAModule
 from .swin import (KernelSite, Mlp, PatchMerging, SwinBlock, VitBlock, WindowAttention,
-                   clamp_window, drop_path_keep, mlp_tail_operands)
+                   clamp_window, drop_path_keep, mlp_tail_operands, scale_rows, window_attend)
 
 __all__ = ["PatchEmbed3D", "CrossSwinBlock", "ThreeViewStages",
            "merge_views_along_channel_axis", "GlobalVitBody", "MumpyEncoder"]
@@ -86,8 +95,10 @@ class CrossSwinBlock(KernelSite):
     """W-MSA + deformable cross-view attention + MLP, block 0 of every stage.
 
     Returns ``(x1_new, out)`` where ``out`` is the pre-residual W-MSA output,
-    the partner stream of the next view.  The attention half runs through the
-    ``attn_ln`` kernel, the tail through ``ln_mlp``.  Reference quirks kept:
+    the partner stream of the next view.  In the ``"blocks"`` set the
+    attention half runs through the ``attn_ln`` kernel, the tail through
+    ``ln_mlp``; in the ``"attention"`` set both run op by op on live
+    parameters (:meth:`train_forward`).  Reference quirks kept:
     the CVA output is added in window-major order without a window reverse,
     on top of the CVA's own residual (a double residual).  ``drop_path`` is
     the block's stochastic-depth rate in training."""
@@ -116,7 +127,7 @@ class CrossSwinBlock(KernelSite):
                 "mlp": mlp_tail_operands(self.norm2, self.mlp)}
 
     def forward(self, x1, x2=None, generator=None):
-        if self.training:
+        if self.training or self.kernel_set == "attention":
             return self.train_forward(x1, x2, generator)
         h, w = self.input_resolution
         win = self.window
@@ -134,24 +145,36 @@ class CrossSwinBlock(KernelSite):
         return (ln_mlp if self.use_kernels else ln_mlp_plain)(x1i, ops["mlp"]), out
 
     def train_forward(self, x1, x2, generator):
-        """Training on live parameters.  Drop-path draws one keep per sample
-        for each residual branch (attention, CVA, MLP), repeated over the
-        sample's windows or tokens, sample-major; the CVA's own residual draws
-        one per window.  The partner stream ``out`` is the attention branch
-        before drop-path."""
+        """Training on live parameters, and the ``"attention"`` set's eval
+        forward (drop-path only in training).  Drop-path draws one keep per
+        sample for each residual branch (attention, CVA, MLP), repeated over
+        the sample's windows or tokens, sample-major; the CVA's own residual
+        draws one per window.  The partner stream ``out`` is the attention
+        branch before drop-path.  The ``"blocks"`` set runs the attention half
+        through the ``attn_ln_train`` kernel and the tail through
+        ``ln_mlp_train``; the ``"attention"`` set runs the JAX package's per-op
+        branch, LayerNorm and :func:`window_attend` (its core through the
+        ``window_attention`` kernel), and the tail's plain version, since the
+        JAX package runs the tail in XLA there."""
         h, w = self.input_resolution
         win = self.window
         b1, l1, c1 = x1.shape
         gh1 = (l1 // (h * w)) * h
         nw = (gh1 // win) * (w // win)
-        rate, dev = self.drop_path, x1.device
-        x1w = partition_tokens(x1, gh1, w, win, 0)
-        keep = drop_path_keep(b1, rate, generator, dev).repeat_interleave(nw)
-        attn = attn_ln_train if self.use_kernels else attn_ln_train_plain
-        yw, x1w = attn(x1w, self.attn.bias()[None],
-                       attn_ln_weights(self.norm1, self.attn, self.attn.num_heads), keep)
-        out = unpartition_tokens(yw, gh1, w, win, 0)
-        x1i = unpartition_tokens(x1w, gh1, w, win, 0)
+        rate, dev = (self.drop_path if self.training else 0.0), x1.device
+        keep = drop_path_keep(b1, rate, generator, dev)
+        if self.kernel_set == "attention":
+            y = window_attend(self.attn, self.norm1(x1), (gh1, w), win, 0,
+                              self.attn.bias()[None], self.use_kernels)
+            out, x1i = y, x1 + scale_rows(y, keep)
+            x1w = partition_tokens(x1i, gh1, w, win, 0)
+        else:
+            attn = attn_ln_train if self.use_kernels else attn_ln_train_plain
+            yw, x1w = attn(partition_tokens(x1, gh1, w, win, 0), self.attn.bias()[None],
+                           attn_ln_weights(self.norm1, self.attn, self.attn.num_heads),
+                           keep.repeat_interleave(nw))
+            out = unpartition_tokens(yw, gh1, w, win, 0)
+            x1i = unpartition_tokens(x1w, gh1, w, win, 0)
         if not self.last_view:
             gh2 = (x2.shape[1] // (h * w)) * h
             x2w = self.pre(partition_tokens(x2, gh2, w, win, 0))
@@ -159,7 +182,7 @@ class CrossSwinBlock(KernelSite):
             keep = drop_path_keep(b1, rate, generator, dev)
             x1i = x1i + keep.to(cw.dtype)[:, None, None] * cw.reshape(b1, l1, c1)
         keep = drop_path_keep(b1, rate, generator, dev).repeat_interleave(l1)
-        tail = ln_mlp_train if self.use_kernels else ln_mlp_train_plain
+        tail = ln_mlp_train if self.block_kernels else ln_mlp_train_plain
         x1o = tail(x1i.reshape(b1 * l1, c1), ln_mlp_weights(self.norm2, self.mlp), keep)
         return x1o.reshape(b1, l1, c1), out
 
@@ -270,8 +293,9 @@ def pair_plain_blocks(blocks: List[SwinBlock]) -> None:
 def run_plain_blocks(blocks: List[SwinBlock], x: torch.Tensor) -> torch.Tensor:
     """One view's plain blocks of a stage on image tokens (B, L, C): the pairs
     on a window-major carry, partitioned once and unpartitioned once, then
-    the lone blocks."""
-    n_pairs = sum(blk.leads_pair for blk in blocks)
+    the lone blocks.  The ``"attention"`` set has no pairs: its blocks run
+    one by one."""
+    n_pairs = sum(blk.leads_pair and blk.kernel_set == "blocks" for blk in blocks)
     if n_pairs:
         head = blocks[0]
         (gh, gw), win = head.grid(), head.window
@@ -295,9 +319,9 @@ def train_plain_blocks(blocks: List[SwinBlock], x: torch.Tensor, generator,
                        remat: bool) -> torch.Tensor:
     """One view's plain blocks 1..d-1 of a stage in training, as the JAX
     package's scanned stack runs them: (block i, block i+1) pairs, then a
-    lone last block.  On the plain path each pair is recomputed in the
-    backward when ``remat``; on the kernel path it is not, as the JAX package
-    drops the scan's remat for the stacks its block kernel owns
+    lone last block.  Each pair is recomputed in the backward when
+    ``remat``, except on the ``"blocks"`` set's kernel path, as the JAX
+    package drops the scan's remat for the stacks its block kernel owns
     (``kernel_owns_memory``): the kernel's backward recomputes the block from
     its input.  Keep factors are drawn before the checkpoint and the pair is
     handed its parameters, so the recompute reads the tensors the forward
@@ -306,7 +330,7 @@ def train_plain_blocks(blocks: List[SwinBlock], x: torch.Tensor, generator,
     keeps = [(drop_path_keep(b, blk.drop_path, generator, x.device),
               drop_path_keep(b, blk.drop_path, generator, x.device)) for blk in blocks]
     n_pairs = len(blocks) // 2
-    remat = remat and not (blocks and blocks[0].use_kernels)
+    remat = remat and not (blocks and blocks[0].block_kernels)
     for i in range(n_pairs):
         first, second = blocks[2 * i], blocks[2 * i + 1]
         args = (x, *keeps[2 * i], *keeps[2 * i + 1],

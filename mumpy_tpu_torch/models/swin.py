@@ -6,14 +6,25 @@ state_dict (``norm1``, ``attn.qkv``, ``attn.relative_position_bias_table``,
 ``mlp.fc1``, ...), so ``mumpy_tpu/utils/weight_port.py:port_state_dicts``
 maps this package's weights onto the JAX model unchanged.
 
-In eval mode the blocks' attention and MLP go through the hand-written
-serving kernels of :mod:`..ops`; :class:`KernelSite` holds each block's
-kernel operands and the explicit choice between a kernel and its plain
-version.  In train mode (``model.train()``) every block runs on its live
-parameters, never on those operands, as the JAX package trains with its
-default ``MUMPY_FUSED_TRAIN_SITES=block,cross,mlp``: the plain Swin blocks
-through the ``swin_block_train`` kernel, the ViT layers' attention by plain
-autograd and their MLP tails through the ``ln_mlp_train`` kernel.
+Each :class:`KernelSite` runs one of two kernel sets, chosen explicitly
+(``utils.serving.set_kernel_path``):
+
+* ``"blocks"``, the JAX package's default: in eval mode the blocks'
+  attention and MLP go through the hand-written whole-block serving kernels
+  of :mod:`..ops`, on operands the site builds once; in train mode
+  (``model.train()``) every block runs on its live parameters, as the JAX
+  package trains with its default ``MUMPY_FUSED_TRAIN_SITES=block,cross,mlp``:
+  the plain Swin blocks through the ``swin_block_train`` kernel, the ViT
+  layers' attention by plain autograd and their MLP tails through the
+  ``ln_mlp_train`` kernel;
+* ``"attention"``, the JAX package's per-op configuration
+  (``MUMPY_FUSED_BLOCK=off MUMPY_PALLAS=on``): every layer runs op by op on
+  its live parameters, in eval and in train mode alike, and only the
+  window-attention core of the 60 Swin attentions goes through a kernel
+  (``window_attention``, differentiable); LayerNorm, Linear, GELU, the ViT
+  and the MLP tails are plain PyTorch, as the JAX package runs them in XLA
+  there.
+
 Stochastic depth is a per-sample keep factor drawn from an explicit
 ``torch.Generator`` (:func:`drop_path_keep`).
 """
@@ -34,9 +45,13 @@ from ..ops.swin_block_train import swin_block_train, swin_block_train_plain, swi
 from ..ops.swin_pair import shift_row_map, swin_pair, swin_pair_operands, swin_pair_plain
 from ..ops.vit3 import vit3, vit3_operands, vit3_plain
 from ..ops.window import partition_tokens, shifted_window_mask, unpartition_tokens
+from ..ops.window_attention import window_attention, window_attention_plain
 
-__all__ = ["relative_position_index", "rel_pos_bias", "drop_path_keep", "KernelSite",
-           "Mlp", "WindowAttention", "SwinBlock", "PatchMerging", "VitBlock"]
+__all__ = ["relative_position_index", "rel_pos_bias", "drop_path_keep", "KERNEL_SETS",
+           "KernelSite", "Mlp", "WindowAttention", "window_attend", "SwinBlock", "PatchMerging",
+           "VitBlock"]
+
+KERNEL_SETS = ("blocks", "attention")
 
 
 def drop_path_keep(n: int, rate: float, generator, device) -> torch.Tensor:
@@ -75,14 +90,22 @@ def rel_pos_bias(table: torch.Tensor, wh: int, ww: int) -> torch.Tensor:
 class KernelSite(nn.Module):
     """A module whose forward runs one of the hand-written kernels.
 
-    ``use_kernels`` selects the kernel wrapper (True) or the kernel's plain
-    PyTorch version (False); it is set explicitly, by
+    ``kernel_set`` picks the kernels (``"blocks"`` or ``"attention"``, see
+    the module docstring) and ``use_kernels`` the kernel wrappers (True) or
+    the kernels' plain PyTorch versions (False); both are set explicitly, by
     ``utils.serving.set_kernel_path``, never by a fallback.  ``prepare()``
-    builds the kernel operands once (weight layouts, the padded mask+bias)
-    from the parameters as they are then; a forward before it raises.
+    builds the ``"blocks"`` set's kernel operands once (weight layouts, the
+    padded mask+bias) from the parameters as they are then; a forward of
+    that set before it raises.  The ``"attention"`` set has no operands.
     """
 
     use_kernels = True
+    kernel_set = "blocks"
+
+    @property
+    def block_kernels(self) -> bool:
+        """Whether this site launches the ``"blocks"`` set's kernels."""
+        return self.use_kernels and self.kernel_set == "blocks"
 
     def build_ops(self):
         raise NotImplementedError
@@ -132,6 +155,38 @@ class WindowAttention(nn.Module):
     def bias(self) -> torch.Tensor:
         return rel_pos_bias(self.relative_position_bias_table, self.window, self.window)
 
+    def params(self):
+        """The live (w_qkv, b_qkv, w_proj, b_proj), torch layouts."""
+        return self.qkv.weight, self.qkv.bias, self.proj.weight, self.proj.bias
+
+    def forward(self, x, mb, use_kernel: bool = True, params=None):
+        """Counterpart of the JAX package's ``WindowAttention`` on its per-op
+        path, on windows ``x`` (B*nW, N, C) with the additive term ``mb``
+        (P, H, N, N): the qkv Linear, the ``window_attention`` kernel (or,
+        with ``use_kernel`` False, its plain version) on the packed qkv, the
+        proj Linear; on ``params`` = (w_qkv, b_qkv, w_proj, b_proj), by
+        default the live ones."""
+        w_qkv, b_qkv, w_proj, b_proj = params or self.params()
+        qkv = F.linear(x, w_qkv, b_qkv)
+        o = (window_attention if use_kernel else window_attention_plain)(qkv, mb, self.num_heads)
+        return F.linear(o, w_proj, b_proj)
+
+
+def window_attend(attn: WindowAttention, x, grid_hw, window: int, shift: int, mb,
+                  use_kernel: bool, params=None):
+    """Counterpart of the JAX package's ``window_attend``: ``attn`` on the
+    (shifted) windows of image tokens (B, L, C) over the folded ``grid_hw``,
+    taken from the ``roll(-shift)`` layout and put back; ``mb`` is the
+    (P, H, N, N) mask+bias of that layout."""
+    gh, gw = grid_hw
+    wins = attn(partition_tokens(x, gh, gw, window, shift), mb, use_kernel, params)
+    return unpartition_tokens(wins, gh, gw, window, shift)
+
+
+def scale_rows(y, keep):
+    """``y`` (B, L, C) times its sample's keep factor (``keep`` (B,), or None: 1)."""
+    return y if keep is None else keep.to(y.dtype)[:, None, None] * y
+
 
 def clamp_window(res, window: int, shift: int):
     """A window no smaller than the grid covers it whole and never shifts."""
@@ -142,10 +197,12 @@ def clamp_window(res, window: int, shift: int):
 
 
 class SwinBlock(KernelSite):
-    """Standard Swin block over a (T*H, W) temporally folded grid; the whole
-    block runs through the ``swin_block`` kernel on window-major tokens, or,
-    when ``leads_pair`` (a shifted block followed by a plain one, set by the
-    encoder), the two run together through ``swin_pair`` (:meth:`pair_forward`)."""
+    """Standard Swin block over a (T*H, W) temporally folded grid.  In the
+    ``"blocks"`` set the whole block runs through the ``swin_block`` kernel
+    on window-major tokens, or, when ``leads_pair`` (a shifted block followed
+    by a plain one, set by the encoder), the two run together through
+    ``swin_pair`` (:meth:`pair_forward`); in the ``"attention"`` set it runs
+    op by op (:meth:`op_forward`)."""
 
     leads_pair = False
     drop_path = 0.0  # stochastic-depth rate in training, set by the encoder
@@ -199,9 +256,11 @@ class SwinBlock(KernelSite):
     def train_forward(self, x, keep_attn, keep_mlp, *params):
         """Training: the block through the ``swin_block_train`` kernel (or its
         plain version) on ``params`` (default: its live parameters), on its
-        (rolled) windows.  ``keep_attn`` / ``keep_mlp`` (B,) are the two
-        residual branches' per-sample keep factors, repeated over the
-        sample's windows."""
+        (rolled) windows; in the ``"attention"`` set :meth:`op_forward`.
+        ``keep_attn`` / ``keep_mlp`` (B,) are the two residual branches'
+        per-sample keep factors, repeated over the sample's windows."""
+        if self.kernel_set == "attention":
+            return self.op_forward(x, keep_attn, keep_mlp, *params)
         *weights, table = params or self.train_params()
         gh, gw = self.grid()
         nw = (gh // self.window) * (gw // self.window)
@@ -211,7 +270,28 @@ class SwinBlock(KernelSite):
                   keep_attn.repeat_interleave(nw), keep_mlp.repeat_interleave(nw))
         return unpartition_tokens(wins, gh, gw, self.window, self.shift)
 
+    def op_forward(self, x, keep_attn=None, keep_mlp=None, *params):
+        """The block op by op, the ``"attention"`` set (the JAX package's
+        ``SwinBlock`` with its fused branches off): norm1, the
+        (shifted-)window attention through ``window_attention`` with the
+        shift's mask+bias, the residual, norm2, the Mlp, the residual.  The
+        same code serves (eval mode, no keeps) and trains by autograd, on
+        ``params`` in :meth:`train_params` order (default: the live ones),
+        ``keep_attn`` / ``keep_mlp`` (B,) scaling the two residual
+        branches."""
+        n1g, n1b, wq, bq, wp, bp, n2g, n2b, w1, b1, w2, b2, table = \
+            params or self.train_params()
+        c = x.shape[-1]
+        y = window_attend(self.attn, F.layer_norm(x, (c,), n1g, n1b, 1e-5), self.grid(),
+                          self.window, self.shift, self.mask_bias(table), self.use_kernels,
+                          (wq, bq, wp, bp))
+        x = x + scale_rows(y, keep_attn)
+        y = F.linear(F.gelu(F.linear(F.layer_norm(x, (c,), n2g, n2b, 1e-5), w1, b1)), w2, b2)
+        return x + scale_rows(y, keep_mlp)
+
     def forward(self, x):
+        if self.kernel_set == "attention":
+            return self.op_forward(x)
         gh, gw = self.grid()
         wins = partition_tokens(x, gh, gw, self.window, self.shift)
         fn = swin_block if self.use_kernels else swin_block_plain
@@ -274,6 +354,9 @@ class VitBlock(KernelSite):
                              m.fc2.bias, self.num_heads)
 
     def forward(self, x):
+        if self.kernel_set == "attention":  # the plain layer on live parameters
+            ones = torch.ones(x.shape[1], device=x.device)
+            return self.train_forward(x, ones, ones)
         return (vit3 if self.use_kernels else vit3_plain)(x, self.kernel_ops())
 
     def train_forward(self, x, keep_attn, keep_mlp):
@@ -282,7 +365,10 @@ class VitBlock(KernelSite):
         token) row r, shared by its three time slices: ``keep_attn`` /
         ``keep_mlp`` are (R,).  The attention half runs by plain autograd (the
         JAX package has no training kernel for it), the tail through the
-        ``ln_mlp_train`` kernel on the 3R rows."""
+        ``ln_mlp_train`` kernel on the 3R rows.  In the ``"attention"`` set
+        the tail is plain too and this is also the eval forward (keeps of 1):
+        the JAX package runs the whole layer in XLA there, so this is the one
+        place where a plain version is on the card's path."""
         _, r, c = x.shape
         heads = self.num_heads
         hd = c // heads
@@ -292,7 +378,7 @@ class VitBlock(KernelSite):
         o = torch.einsum("rhij,jrhd->irhd", torch.softmax(s, dim=-1), v.float())
         y = self.attn.proj(o.reshape(3, r, c).to(x.dtype))
         x = x + keep_attn.to(x.dtype)[None, :, None] * y
-        tail = ln_mlp_train if self.use_kernels else ln_mlp_train_plain
+        tail = ln_mlp_train if self.block_kernels else ln_mlp_train_plain
         out = tail(x.reshape(3 * r, c), ln_mlp_weights(self.norm2, self.mlp),
                    keep_mlp.repeat(3))  # time-major rows t * R + r take keep[r]
         return out.reshape(3, r, c)

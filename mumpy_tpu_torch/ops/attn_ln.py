@@ -28,6 +28,8 @@ def pad_mask_bias(mask_bias: torch.Tensor) -> torch.Tensor:
     """(P, H, N, N) additive term -> (P, H, N, 64) f32 whose key-pad columns
     hold -1e30, so the term doubles as the key-pad mask in the kernel."""
     p, h, n, _ = mask_bias.shape
+    if n > KEY_PAD:
+        raise ValueError(f"window attention takes n <= {KEY_PAD}, got n={n}")
     out = torch.full((p, h, n, KEY_PAD), -1e30, dtype=torch.float32,
                      device=mask_bias.device)
     out[..., :n] = mask_bias.float()
@@ -71,14 +73,9 @@ def attn_ln_plain(x, ops):
 def attention_launches(x2, ops, r, n, a_map=None):
     """LN+qkv GEMM and the attention core; returns the (R*N, C) head outputs.
     With ``a_map`` the qkv GEMM reads its rows through that row map."""
-    c = x2.shape[-1]
-    heads = ops["heads"]
-    hd = c // heads
     qkv, _ = cuda_lib.gemm(x2, ops["w_qkv"], ops["b_qkv"], ln=(ops["ln_g"], ops["ln_b"]),
                            a_map=a_map)
-    return cuda_lib.window_attention(
-        qkv, qkv, qkv, r=r, n=n, heads=heads, hd=hd, q_mod=r, ldq=3 * c, ldk=3 * c,
-        ldv=3 * c, q_off=0, k_off=c, v_off=2 * c, mb=ops["mb"], scale=hd**-0.5)
+    return cuda_lib.packed_window_attention(qkv, ops["mb"], r=r, n=n, heads=ops["heads"])
 
 
 def attn_ln(x, ops):

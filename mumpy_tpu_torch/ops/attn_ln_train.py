@@ -99,13 +99,8 @@ class _AttnLnTrain(torch.autograd.Function):
 
 def _attention(x2, wq_t, b_qkv, mbp, r, n, heads, ln=None):
     """qkv = (LN(x2) or x2) Wqkv + b, then the attention core: (qkv, o)."""
-    c = wq_t.shape[0]
-    hd = c // heads
     qkv, _ = cuda_lib.gemm(x2, wq_t, b_qkv, ln=ln)
-    o = cuda_lib.window_attention(
-        qkv, qkv, qkv, r=r, n=n, heads=heads, hd=hd, q_mod=r, ldq=3 * c, ldk=3 * c,
-        ldv=3 * c, q_off=0, k_off=c, v_off=2 * c, mb=mbp, scale=hd**-0.5)
-    return qkv, o
+    return qkv, cuda_lib.packed_window_attention(qkv, mbp, r=r, n=n, heads=heads)
 
 
 def launch_attn_ln_train_bwd(x, mbp, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t, heads,

@@ -259,6 +259,17 @@ def window_attention(q, k, v, *, r, n, heads, hd, q_mod, ldq, ldk, ldv,
     return o
 
 
+def packed_window_attention(qkv, mbp, *, r, n, heads):
+    """The window-attention core on the packed (R*N, 3C) rows the qkv GEMM
+    writes (q at column h*hd, k at C + h*hd, v at 2C + h*hd) with the padded
+    (P, H, N, 64) f32 mask+bias ``mbp``.  Returns o (R*N, C)."""
+    c = qkv.shape[-1] // 3
+    hd = c // heads
+    return window_attention(qkv, qkv, qkv, r=r, n=n, heads=heads, hd=hd, q_mod=r,
+                            ldq=3 * c, ldk=3 * c, ldv=3 * c, q_off=0, k_off=c, v_off=2 * c,
+                            mb=mbp, scale=hd**-0.5)
+
+
 def cva_sample(x2, gy, gx, *, b1, n, groups, ws):
     """Launch the per-group bilinear sampler (csrc/cva_sample.cu)."""
     r, c = x2.shape[0] // n, x2.shape[-1]

@@ -1,0 +1,129 @@
+"""Kernel ``window_attention``: multi-head attention over windows with a
+periodic additive term, differentiable.
+
+    o[w, i, h] = sum_j softmax_j(q[w, i, h] . k[w, j, h] * hd^-0.5 + mb[w % P, h, i, j]) v[w, j, h]
+
+``qkv`` is (B*nW, N, 3C), packed as the qkv Linear writes it (q of head h at
+columns h*hd, k at C + h*hd, v at 2C + h*hd); ``mb`` is (P, H, N, N), the
+relative-position bias (P = 1) or the shift mask plus the bias (P = nW).
+The output is (B*nW, N, C), head h at columns h*hd.
+
+Replaces ``mumpy_tpu/ops/pallas/window_attention.py:fused_window_attention``
+(Pallas ``_attn_kernel``) and its custom VJP ``window_attention_ad``.  The
+Pallas function takes rows R = B*nW*H, heads fastest, with a bias of period
+P*H along them; the port keeps the windows and heads of the packed qkv and
+reads the bias of window w as ``mb[w % P]``, which is the same function.  As
+there, the scores and the softmax are f32, keys past N are masked, P is
+rounded to v's dtype before P.V, and both products accumulate in f32; the
+backward recomputes the softmax from q, k and the bias, as ``_ad_bwd`` does,
+and returns d(qkv) and d(mb) summed over the windows of each period, in
+``mb``'s dtype.  The JAX package runs that backward in XLA; the port has a
+hand-written core for exactly this function and runs it:
+
+* forward, one launch of ``csrc/window_attention.cu`` (tensor cores for bf16
+  at hd = 32, every flagship head) on the packed rows, with ``mb`` padded to
+  (P, H, N, 64) f32 whose key-pad columns hold -1e30 (the key mask);
+* backward, one launch of ``csrc/window_attention_bwd.cu``: P recomputed in
+  f32, dP = dO V^T, dS = P (dP - rowsum(P dP)), dQ, dK, dV into the packed
+  d(qkv), and dS summed per (period slot, head) into d(mb).  It rounds P to
+  the input dtype before dV = P^T dO and dS * scale before dQ and dK, as the
+  JAX package's training kernels do (``_ad_bwd`` keeps f32 until its cast).
+
+At the flagship's N = 49 and hd = 32 both are bound by device-memory bytes,
+not by operations: the forward does about 25 flops per byte it must move in
+bf16, the backward about 28, against the H100's ~295 for its tensor cores.
+The design keeps one (window, head) in shared memory and never writes the
+scores or probabilities to device memory.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+from .attn_ln import pad_mask_bias
+
+__all__ = ["window_attention", "window_attention_plain", "launch_window_attention",
+           "launch_window_attention_bwd"]
+
+
+def _check(qkv, mb, heads):
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(f"window attention takes packed qkv (B*nW, N, 3C) with C a multiple "
+                         f"of {heads} heads, got {tuple(qkv.shape)}")
+    r, n = qkv.shape[:2]
+    if mb.dim() != 4 or tuple(mb.shape[1:]) != (heads, n, n):
+        raise ValueError(f"mask+bias must be (P, {heads}, {n}, {n}), got {tuple(mb.shape)}")
+    if r % mb.shape[0]:
+        raise ValueError(f"{r} windows are not a multiple of the mask period {mb.shape[0]}")
+
+
+def window_attention_plain(qkv, mb, heads):
+    """Plain PyTorch version of the same function, differentiated by
+    autograd: both products in the input dtype, the scores and the softmax
+    in f32, the probabilities cast to v's dtype before P.V."""
+    r, n, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // heads
+    q, k, v = qkv.reshape(r, n, 3, heads, hd).unbind(2)  # (R, N, H, hd)
+    s = torch.einsum("rqhd,rkhd->rhqk", q, k).float() * hd**-0.5
+    per = mb.shape[0]
+    s = (s.reshape(r // per, per, heads, n, n) + mb.float()).reshape(r, heads, n, n)
+    a = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("rhqk,rkhd->rqhd", a, v).reshape(r, n, c)
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, mb, heads):
+        r, n, c3 = qkv.shape
+        mbp = pad_mask_bias(mb)
+        o = cuda_lib.packed_window_attention(qkv.reshape(r * n, c3), mbp, r=r, n=n,
+                                             heads=heads)
+        ctx.save_for_backward(qkv, mbp)
+        ctx.heads, ctx.mb_dtype = heads, mb.dtype
+        return o.reshape(r, n, c3 // 3)
+
+    @staticmethod
+    def backward(ctx, do):
+        window_attention.backward_launches += 1
+        qkv, mbp = ctx.saved_tensors
+        dqkv, dmb = launch_window_attention_bwd(qkv, mbp, do, ctx.heads)
+        return dqkv, dmb.to(ctx.mb_dtype), None
+
+
+def launch_window_attention_bwd(qkv, mbp, do, heads, rowsum=True):
+    """The backward's launch on the forward's packed ``qkv`` (R, N, 3C), its
+    padded (P, H, N, 64) f32 ``mbp`` and the output gradient ``do`` (R, N, C).
+    Returns d(qkv) (R, N, 3C) and d(mb) (P, H, N, N) f32; ``rowsum=False`` is
+    the planted fault of the checks (the softmax backward without its rowsum
+    term)."""
+    r, n, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // heads
+    dqkv, dmb = cuda_lib.window_attention_bwd(
+        qkv.reshape(r * n, c3), do.reshape(r * n, c).contiguous(), mbp, r=r, n=n,
+        heads=heads, hd=hd, scale=hd**-0.5, rowsum=rowsum)
+    return dqkv.reshape(r, n, c3), dmb
+
+
+def window_attention(qkv, mb, heads):
+    """Packed ``qkv`` (B*nW, N, 3C) and ``mb`` (P, H, N, N) -> the heads'
+    outputs (B*nW, N, C), differentiable in both.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel.
+    ``window_attention.launches`` counts forward launches,
+    ``window_attention.backward_launches`` the backward's."""
+    _check(qkv, mb, heads)
+    if qkv.device.type == "cpu":
+        return window_attention_plain(qkv, mb, heads)
+    window_attention.launches += 1
+    return launch_window_attention(qkv, mb, heads)
+
+
+def launch_window_attention(qkv, mb, heads):
+    """The kernel's forward launch, differentiable through its backward's."""
+    return _WindowAttention.apply(cuda_lib.aligned(qkv), mb, heads)
+
+
+window_attention.launches = 0
+window_attention.backward_launches = 0

@@ -11,7 +11,10 @@ clips are read by the port's own :mod:`.data`, in this process.
 
 It serves on the first CUDA device, through the hand-written kernels, unless
 ``-device cpu`` asks for the CPU (the kernels' plain versions); with
-``-device cuda`` and no visible card it exits with an error.
+``-device cuda`` and no visible card it exits with an error.  ``-kernel_set``
+picks the kernels: ``blocks`` (default, the JAX package's default set) or
+``attention`` (its ``MUMPY_FUSED_BLOCK=off MUMPY_PALLAS=on``: op by op, only
+the window-attention core through a kernel).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from .configs import multiswin_config, tiny_config
 from .data import EvalClips, davis_config, youtubevos_config
 from .models.mumpy import Mumpy
+from .models.swin import KERNEL_SETS
 from .utils.serving import make_serving_forward
 from .utils.weight_port import random_state_dict
 
@@ -47,6 +51,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda: the first GPU, through the kernels (default); "
                         "cpu: the kernels' plain versions")
+    p.add_argument("-kernel_set", default="blocks", choices=KERNEL_SETS,
+                   help="blocks: the whole-block kernels (default); attention: op by op, "
+                        "only the window-attention core through a kernel")
     p.add_argument("--tiny", action="store_true", help="the tiny debug architecture")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 parameters and activations (f32 accumulation)")
@@ -83,8 +90,8 @@ def main(argv=None) -> None:
     model = load_model(model_cfg, model_dir)
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    forward = make_serving_forward(model, device, dtype)
-    print(f"Serving on {device} in {dtype}")
+    forward = make_serving_forward(model, device, dtype, kernel_set=args.kernel_set)
+    print(f"Serving on {device} in {dtype}, kernel set {args.kernel_set}")
 
     bs = max(1, args.batch_size)
     out_root = os.path.join(model_dir, f"masks_{args.dataset}")

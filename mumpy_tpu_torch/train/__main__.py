@@ -9,7 +9,9 @@ per step, SGD):
 
 It trains on the first CUDA device, through the training kernels, unless
 ``-device cpu`` asks for the CPU (the kernels' plain versions); with
-``-device cuda`` and no visible card it exits with an error.  The weights
+``-device cuda`` and no visible card it exits with an error.  ``-kernel_set``
+picks the kernels, ``blocks`` (default) or ``attention`` (see
+``utils/serving.py``), for the training steps and the val passes.  The weights
 start from the JAX package's initialisation drawn from ``-seed``
 (``utils.weight_port.jax_init_state_dict``), which ``-pretrained`` (a
 reference checkpoint) overlays by name, ``-resume`` (this run's latest or
@@ -29,6 +31,7 @@ import torch
 from ..configs import multiswin_config, tiny_config
 from ..data import DataLoader, TrainClips
 from ..models.mumpy import Mumpy
+from ..utils.serving import set_kernel_path
 from ..utils.weight_port import jax_init_state_dict, load_pretrained
 from . import checkpoint as ckpt_lib
 from .args import build_configs, get_parser
@@ -62,6 +65,7 @@ def main(argv=None) -> None:
     if args.pretrained:
         print(f"Warm start: {load_pretrained(model, args.pretrained)} tensors from "
               f"{args.pretrained}")
+    set_kernel_path(model, True, args.kernel_set)
     model.to(device).train()
     state = TrainState(model, Optimizer(model.named_parameters(), opt_cfg, iter_max))
     if args.resume:
@@ -80,7 +84,7 @@ def main(argv=None) -> None:
         print(f"Transferred weights from {src_dir}")
     print(f"Training on {device} in {loop_cfg.compute_dtype}, "
           f"{data_cfg.batch_size} clips x {len(datasets['train'].stream_roots)} streams "
-          "per step")
+          f"per step, kernel set {args.kernel_set}")
     train_loop(state, loaders, loop_cfg, max_steps_per_epoch=args.max_steps_per_epoch)
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import argparse
 
 from ..data import davis_config, youtubevos_config
+from ..models.swin import KERNEL_SETS
 from .optim import OptimConfig
 from .trainer import TrainLoopConfig
 
@@ -69,6 +70,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda: the first GPU, through the kernels (default); "
                         "cpu: the kernels' plain versions")
+    p.add_argument("-kernel_set", default="blocks", choices=KERNEL_SETS,
+                   help="blocks: the whole-block training kernels (default); attention: op "
+                        "by op, only the window-attention core (and its backward) through a "
+                        "kernel")
     return p
 
 
