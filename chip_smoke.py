@@ -6,7 +6,8 @@ Phases (any failure exits non-zero, before the result line):
 
 1. the device: ``torch.cuda.get_device_name(0)``, and on a line of its own
    the card's name and power limit as ``nvidia-smi`` gives them;
-2. build the hand-written kernels from ``mumpy_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build the hand-written kernels from ``mumpy_tpu_torch/csrc`` (nvcc, sm_90a)
+   and print each kernel's registers and spills (``-Xptxas -v``);
 3. capture the input of every distinct kernel instance (kernel, shapes, mask
    period, ratio) that the flagship 224^2 forward launches, at batch 2, plus
    the instances earlier slices launched and the default path no longer does
@@ -50,8 +51,10 @@ drop-path 0.2:
    ``out - x``, of dx ``dx`` less the residual's cotangent).  Planted faults
    on the bf16 instances must each be caught: the mask+bias zeroed, the
    softmax backward's rowsum term dropped, gelu' replaced by 1, the keep
-   factor (the block's keep2) ignored, and on the shifted blocks the shift
-   mask dropped from the mask+bias, on seeded keep factors 0, 1 / (1 - 0.2)
+   factor (the block's keep2) ignored, the block's bf16 GEMM ignoring its
+   row scale (keep1, in the backward's recompute of x2), and on the shifted
+   blocks the shift mask dropped from the mask+bias, on seeded keep factors
+   0, 1 / (1 - 0.2)
    and 1 (the captured ones are 1 or within 2% of it in the early stages;
    the block kernel runs every check on the seeded keeps);
 8. one training step on the kernel path from identical weights and keep
@@ -76,7 +79,9 @@ drop-path 0.2:
    forward and backward launches called directly, with no autograd, and in
    f32) against its bound (bf16: 989 TFLOP/s; f32: 67 TFLOP/s, the H100
    SXM's non-tensor f32 peak; the work of the forward, the input gradients
-   and the weight gradients, not the backward's recompute);
+   and the weight gradients, not the backward's recompute); and, by
+   ``torch.profiler``, the device ms and launches of each kernel that one bf16
+   step's direct launches of every ``swin_block_train`` instance run;
 11. ``python -m mumpy_tpu_torch.train``'s ``main`` for one epoch on
    synthetic 224^2 PNG clips (two streams, 12 clips per step, two steps, a
    val pass and the checkpoints), then ``mumpy_tpu_torch.serve``'s ``main``
@@ -115,7 +120,8 @@ d. bf16 frames/s at batch 32 of the attention set beside the blocks set's
    version's, ``torch.nn.functional.scaled_dot_product_attention``'s on the
    same q, k, v with the mask+bias as its float ``attn_mask`` (the
    ``library_ms``; the port never calls it) and its bound (bound by bytes at
-   N = 49: ~25 flops per byte).
+   N = 49: ~25 flops per byte), and the device ms and launches of each
+   kernel of #7's step by name (``torch.profiler``).
 
 The weights are drawn with ``random_state_dict(..., fan_in=True)``: matrices
 at 1/sqrt(fan-in) and relative-position tables at unit scale, so every score,
@@ -163,12 +169,14 @@ RESIDUAL_KERNELS = ("swin_block", "swin_pair", "ln_mlp", "vit3")  # out = x + br
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16 tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM: f32 outside the tensor cores
 TRAIN_KERNEL_INFO = {  # name -> (CUDA sources, TPU kernel it replaces)
-    "swin_block_train": (["gemm.cu", "window_attention.cu", "window_attention_bwd.cu",
-                          "train_rows.cu", "wgrad.cu"],
+    "swin_block_train": (["swin_block_train.cu", "gemm.cu", "gemm_sm90.cu",
+                          "window_attention.cu", "window_attention_bwd.cu", "train_rows.cu",
+                          "wgrad.cu"],
                          "mumpy_tpu/ops/pallas/swin_block_vjp.py:587"),
-    "attn_ln_train": (["gemm.cu", "window_attention.cu", "window_attention_bwd.cu",
-                       "train_rows.cu", "wgrad.cu"], "mumpy_tpu/ops/pallas/attn_ln_vjp.py:188"),
-    "ln_mlp_train": (["gemm.cu", "train_rows.cu", "wgrad.cu"],
+    "attn_ln_train": (["gemm.cu", "gemm_sm90.cu", "window_attention.cu",
+                       "window_attention_bwd.cu", "train_rows.cu", "wgrad.cu"],
+                      "mumpy_tpu/ops/pallas/attn_ln_vjp.py:188"),
+    "ln_mlp_train": (["gemm.cu", "gemm_sm90.cu", "train_rows.cu", "wgrad.cu"],
                      "mumpy_tpu/ops/pallas/ln_mlp_vjp.py:119"),
 }
 EXPECTED_TRAIN_LAUNCHES = {"swin_block_train": (48, 48), "attn_ln_train": (12, 12),
@@ -223,13 +231,11 @@ def mask_bias_shape(ops):
 
 
 def drop_mask_bias(ops):
-    """The operands with every additive mask+bias zeroed (its key-pad columns
-    kept): the planted fault the branch comparison must catch."""
+    """The operands with every additive mask+bias zeroed: the planted fault
+    the branch comparison must catch."""
     if "mb" not in ops:
         return {k: drop_mask_bias(v) if mask_bias_shape(v) else v for k, v in ops.items()}
-    mb = ops["mb"].clone()
-    mb[..., : mb.shape[2]] = 0.0
-    return {**ops, "mb": mb}
+    return {**ops, "mb": torch.zeros_like(ops["mb"])}
 
 
 def identity_map(ops):
@@ -497,8 +503,6 @@ def train_kernel_run(name, args, cots, fault=None, raw=False):
     from mumpy_tpu_torch.ops import attn_ln_train as alt
     from mumpy_tpu_torch.ops import ln_mlp_train as lmt
     from mumpy_tpu_torch.ops import swin_block_train as sbt
-    from mumpy_tpu_torch.ops.attn_ln import pad_mask_bias
-
     keep = args[-1]
     if fault == "keep ignored":
         keep = torch.ones_like(keep)
@@ -509,25 +513,26 @@ def train_kernel_run(name, args, cots, fault=None, raw=False):
                 mb = drop_shift_mask(mb)
             out = sbt.launch_swin_block_train(x, mb, p, keep1, keep)
             w = [p[k] for k in sbt._WEIGHTS]
+            # the (in, out) copies serve f32; bf16 reads the weights as stored
+            transposed = [p[k].t().contiguous() if x.dtype == torch.float32 else None
+                          for k in ("w_qkv", "w_proj", "w1")]
             g = sbt.launch_swin_block_train_bwd(
-                x, pad_mask_bias(mb), keep1, keep, *w,
-                *(p[k].t().contiguous() for k in ("w_qkv", "w_proj", "w1")), p["heads"],
-                *cots, rowsum=fault != "rowsum dropped", gelu_grad=fault != "gelu' = 1")
+                x, mb, keep1, keep, *w, *transposed, p["heads"],
+                *cots, rowsum=fault != "rowsum dropped", gelu_grad=fault != "gelu' = 1",
+                row_scale=fault != "GEMM row scale ignored")
             names = ("x", "mb", None, None, *sbt._WEIGHTS)
             res = {"out": out}
-            g = (g[0], g[1][..., : x.shape[1]], *g[2:])
         elif name == "attn_ln_train":
             x, mb, p, _ = args
             if fault == "mask+bias zeroed":
                 mb = torch.zeros_like(mb)
             y, out = alt.launch_attn_ln_train(x, mb, p, keep)
             g = alt.launch_attn_ln_train_bwd(
-                x, pad_mask_bias(mb), keep, p["ln_g"], p["ln_b"], p["w_qkv"], p["b_qkv"],
+                x, mb, keep, p["ln_g"], p["ln_b"], p["w_qkv"], p["b_qkv"],
                 p["w_proj"], p["w_qkv"].t().contiguous(), p["heads"], *cots,
                 rowsum=fault != "rowsum dropped")
             names = ("x", "mb", None, "ln_g", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj")
             res = {"y": y, "out": out}
-            g = (g[0], g[1][..., : x.shape[1]], *g[2:])
         else:
             x, p, _ = args
             out = lmt.launch_ln_mlp_train(x, p, keep)
@@ -643,6 +648,7 @@ def training_phases(cfg, dev, smi, rng):
     # per step: ms bf16, plain ms bf16, bound bf16, its ops and bytes parts, ms f32,
     # bound f32, ms bf16 by direct launches (no autograd)
     times = {k: [0.0] * 8 for k in train_kernels}
+    block_calls = []  # (bf16 args, cotangents, count) of each #8 instance, for phase 10
     for (name, xshape, mbshape), (args, count) in cap.instances.items():
         keep = args[-1]
         if name == "swin_block_train":  # every check on seeded keeps 0, 1.25, 1
@@ -664,7 +670,7 @@ def training_phases(cfg, dev, smi, rng):
         errs[name] = max(errs[name], max(rel_err(got32[k], r)[0] for k, r in ref32.items()))
         good = m32 <= F32_TOL and b32 <= F32_BRANCH_TOL and m16 <= BF16_TOL and \
             b16 <= BF16_BRANCH_TOL
-        faults = {"swin_block_train": ["rowsum dropped", "gelu' = 1"],
+        faults = {"swin_block_train": ["rowsum dropped", "gelu' = 1", "GEMM row scale ignored"],
                   "attn_ln_train": ["mask+bias zeroed", "rowsum dropped"],
                   "ln_mlp_train": ["gelu' = 1"]}[name]
         if name == "swin_block_train" and mbshape[0] > 1:
@@ -712,6 +718,8 @@ def training_phases(cfg, dev, smi, rng):
         row[6] += count * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
         row[7] += count * cuda_ms(lambda: train_kernel_run(name, args16, cots16, raw=True),
                                   reps=5)
+        if name == "swin_block_train":
+            block_calls.append((args16, cots16, count))
     del cap
     if not ok:
         log("[train-kernel] FAILED: a training kernel disagrees with its plain version, "
@@ -860,6 +868,13 @@ def training_phases(cfg, dev, smi, rng):
 
     if not run_steps("blocks"):
         return None
+    # one bf16 step's direct launches of every #8 instance, each as often as
+    # the step runs it, by kernel name
+    launch_breakdown(lambda: [train_kernel_run("swin_block_train", a, c, raw=True)
+                              for a, c, count in block_calls for _ in range(count)],
+                     "swin_block_train, one bf16 step's direct launches (48 forward + 48 "
+                     "backward)", smi)
+    del block_calls
     for name, (k_ms, p_ms, b_ms, _, _, k32, b32, d_ms) in times.items():
         log(f"[train-time] {name}: kernel {k_ms:.3f} ms ({d_ms:.3f} ms by direct launches, "
             f"no autograd), plain {p_ms:.3f} ms, bound {b_ms:.3f} ms per bf16 step (forward + "
@@ -968,7 +983,6 @@ def check_attention_instance(qkv, mb, heads, seed):
     the planted faults on the bf16 inputs.  Returns (ok, f32 largest
     absolute error, log text)."""
     from mumpy_tpu_torch.ops import window_attention as wa
-    from mumpy_tpu_torch.ops.attn_ln import pad_mask_bias
 
     r, n, c3 = qkv.shape
     crng = np.random.default_rng(seed)
@@ -987,7 +1001,7 @@ def check_attention_instance(qkv, mb, heads, seed):
     good = m32 <= F32_TOL and b32 <= F32_BRANCH_TOL and m16 <= BF16_TOL and b16 <= BF16_BRANCH_TOL
     with torch.no_grad():
         bad_out = wa.launch_window_attention(q16, torch.zeros_like(mb16), heads).float()
-        bad_dqkv = wa.launch_window_attention_bwd(q16, pad_mask_bias(mb16), do16, heads,
+        bad_dqkv = wa.launch_window_attention_bwd(q16, mb16, do16, heads,
                                                   rowsum=False)[0].float()
     text = ""
     for label, bad, key in (("mask+bias zeroed", bad_out, "out"),
@@ -1202,6 +1216,17 @@ def attention_step_times(model, init, batch, generator, smi):
         row["bound_ms"] += n_f * max(t_ops, t_bytes)
         row["ops_ms"] += n_f * t_ops
         row["bytes_ms"] += n_f * t_bytes
+    calls = []  # each instance's kernel closures as often as the step runs them
+    for (qkv, mb, heads), count in cap.instances.values():
+        do = torch.from_numpy(crng.standard_normal(
+            (qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3), dtype=np.float32)).to(
+            qkv.device, qkv.dtype)
+        fns = attn_closures(qkv, mb, heads, do)
+        calls += [fns[("kernel", "fwdbwd")]] * count["forward"]
+        calls += [fns[("kernel", "fwd")]] * count["recompute"]
+    launch_breakdown(lambda: [fn() for fn in calls], "window_attention, one bf16 step (forward "
+                     "and backward, recomputed forwards; through autograd)", smi)
+    del calls
     counts = [c for _, c in cap.instances.values()]
     log(f"[attn-train-time] window_attention: kernel {row['ms']:.3f} ms, plain "
         f"{row['plain_ms']:.3f} ms, scaled_dot_product_attention {row['library_ms']:.3f} ms, "
@@ -1224,6 +1249,17 @@ def device_kernels(fn):
         torch.cuda.synchronize()
     return {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def launch_breakdown(fn, label, smi):
+    """Log the device ms and launches of every kernel one call of ``fn``
+    runs, by name (``device_kernels``), longest first."""
+    kernels = device_kernels(fn)
+    total = sum(t for t, _ in kernels.values())
+    log(f"[breakdown] {label}: device {total:.3f} ms in "
+        f"{sum(n for _, n in kernels.values())} launches ({smi})")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
+        log(f"[breakdown]   {ms:9.3f} ms x{n:<5d} {name[:120]}")
 
 
 def train_closure(name, args, cots, kernel):
@@ -1278,6 +1314,32 @@ def write_synthetic_clips(root, rng, size):
             Image.fromarray(m).save(root / "annot" / name / f"{i:05d}.png")
 
 
+def ptxas_summary(build_log):
+    """[(kernel, "N registers, S bytes spill stores, L bytes spill loads")]
+    from the ``-Xptxas -v`` lines of the build, the kernel named by its
+    identifier and, for a template, its mangled arguments."""
+    import re
+
+    out, name, spills = [], None, ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.match(r"_ZN5mumpy(\d+)", mangled)
+            name = mangled
+            if m:
+                end = m.end() + int(m.group(1))
+                rest = mangled[end:]
+                name = mangled[m.end():end] + (f"<{rest[1:rest.find('EE')]}>"
+                                               if rest.startswith("I") else "")
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and name is not None:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append((name, f"{regs.group(1) if regs else '?'} registers, {spills}"))
+            name, spills = None, ""
+    return out
+
+
 def build_model(cfg, device):
     from mumpy_tpu_torch.models.mumpy import Mumpy
     from mumpy_tpu_torch.utils.weight_port import random_state_dict
@@ -1325,9 +1387,8 @@ def main() -> int:
     cuda_lib.lib()
     cached = " (library reused from build/, not rebuilt)" if not cuda_lib.build_log else ""
     log(f"[build] nvcc {cuda_lib.build_seconds:.1f} s{cached}")
-    for line in cuda_lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for name, info in ptxas_summary(cuda_lib.build_log):
+        log(f"[build] {name}: {info}")
 
     cfg = multiswin_config()
     rng = np.random.default_rng(SEED)

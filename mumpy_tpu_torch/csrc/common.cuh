@@ -66,6 +66,74 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// ---- Ampere / Hopper building blocks (inline PTX) ----
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without registers; with !valid the 16 bytes are
+// zero-filled and nothing is read (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i; register i of lane l holds row l/4, columns
+// 2(l%4), 2(l%4)+1 of matrix i (with .trans, of its transpose).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b on the tensor cores, m16n8k16, bf16 operands, f32 accumulators.
+// With g = lane / 4, t = lane % 4: a[0..3] hold A rows (g, g+8, g, g+8) at
+// columns (2t, 2t, 2t+8, 2t+8) and the next one; b0 / b1 hold B rows 2t, 2t+1
+// / 2t+8, 2t+9 of column g; d[0..3] are C (g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16, the first in the low half (the lower column)
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// The GEMM epilogues' activation (gemm.cu, gemm_sm90.cu)
+enum Act : int { kActNone = 0, kActGelu = 1, kActGeluGrad = 2 };
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// d gelu_erf / dv = Phi(v) + v * phi(v)
+__device__ __forceinline__ float gelu_erf_grad(float v) {
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+         v * 0.39894228040143268f * expf(-0.5f * v * v);
+}
+
 // Host side: may a kernel read this pointer with 16-byte vector loads?
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 

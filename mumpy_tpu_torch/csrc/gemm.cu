@@ -53,18 +53,6 @@ struct GemmArgs {
   int M, N, K, a_sum, a_seg, act, map_len, scale_div;
 };
 
-enum Act : int { kActNone = 0, kActGelu = 1, kActGeluGrad = 2 };
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// d gelu_erf / dv = Phi(v) + v * phi(v)
-__device__ __forceinline__ float gelu_erf_grad(float v) {
-  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
-         v * 0.39894228040143268f * expf(-0.5f * v * v);
-}
-
 // Row m through a row map of period len (no map: m itself).
 __device__ __forceinline__ int map_row(const int* map, int len, int m) {
   return map == nullptr ? m : (m / len) * len + map[m % len];

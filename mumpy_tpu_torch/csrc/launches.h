@@ -1,0 +1,41 @@
+// The C entry points of the kernel sources that swin_block_train.cu launches
+// in sequence (each defined in the source named beside it).  Every one
+// launches on `stream` and returns cudaGetLastError().
+#pragma once
+
+extern "C" {
+
+// train_rows.cu
+int mumpy_ln_rows(const void* x, const void* g, const void* b, void* h, float* mu, float* rstd,
+                  int rows, int C, int dtype, void* stream);
+int mumpy_ln_bwd_rows(const void* x, const float* mu, const float* rstd, const void* g,
+                      const void* dh, const void* dres, void* dx, int rows, int C, int dtype,
+                      void* stream);
+int mumpy_scale_add_rows(const void* a, const void* b, const float* s, void* out, int rows,
+                         int C, int div, int dtype, void* stream);
+
+// gemm_sm90.cu
+int mumpy_gemm_sm90(const void* a, const void* b, const void* bias, const void* res,
+                    const float* row_scale, const void* aux, void* y, void* out, void* aux_out,
+                    int M, int N, int K, int b_kmajor, int act, int scale_div, int row_scale_on,
+                    void* stream);
+int mumpy_gemm_sm90_tn(const void* a, const void* b, float* ws, void* dw, void* db, int rows,
+                       int M, int N, int rows_per_split, void* stream);
+
+// window_attention.cu, window_attention_bwd.cu
+int mumpy_window_attention(const void* q, const void* k, const void* v, void* o, const void* mb,
+                           int R, int N, int H, int hd, int q_mod, int ldq, int ldk, int ldv,
+                           int ldo, int P, int mb_dtype, int mb_s0, int mb_s1, int mb_s2,
+                           int mb_s3, float scale, int dtype, void* stream);
+int mumpy_window_attention_bwd(const void* qkv, const void* dout, const void* mb, void* dqkv,
+                               float* dmb, int R, int N, int H, int hd, int P, int mb_dtype,
+                               int mb_s0, int mb_s1, int mb_s2, int mb_s3, int chunks,
+                               float scale, int rowsum, int dtype, void* stream);
+
+// wgrad.cu
+int mumpy_col_sums(const void* dh, const void* x, const float* mu, const float* rstd,
+                   float* ws, void* dg, void* db, int rows, int C, int rows_per_split,
+                   int dtype, void* stream);
+int mumpy_reduce_splits(const float* ws, int n, const long long* desc, void* const* outs,
+                        void* stream);
+}

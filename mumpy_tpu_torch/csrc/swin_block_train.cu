@@ -1,0 +1,304 @@
+// The bf16 launch sequences of the whole-block training kernel
+// (ops/swin_block_train.py, #8), forward and backward: one call from Python
+// each, which launches every kernel of the sequence in turn on the caller's
+// stream, the intermediates in one scratch buffer that the caller allocates
+// (mumpy_swin_block_train_scratch gives its size).
+//
+// Replaces, with the kernels it launches, mumpy_tpu/ops/pallas/
+// swin_block_vjp.py:fused_block_train (_train_fwd_kernel, _train_bwd_kernel,
+// _train_bwd_dw_kernel).  The sequence is the one ops/swin_block_train.py
+// composes in Python for f32, with the halves it shares with attn_ln_train
+// and ln_mlp_train; bf16 takes it from here because a 12-clip step runs the
+// block 48 times forward and backward, some 30 launches each, and from Python
+// every launch costs tens of microseconds of host time, more than the device
+// time of most of them (PERF.md §6).  Here a launch costs a few microseconds.
+//
+// Forward (x (R*N, C), the (P, H, N, N) mask+bias mb, the keep factors keep1
+// and keep2 per window of N rows, the 12 weights as torch stores them):
+//   h1 = LN1(x); qkv = h1 Wqkv^T + bqkv; o = attention(qkv, mb);
+//   x2 = x + keep1 * (o Wproj^T + bproj); h2 = LN2(x2);
+//   g = gelu(h2 W1^T + b1); y = x2 + keep2 * (g W2^T + b2)
+// Backward (dy), recomputing h1, qkv, o, x2, h2 and f1 = h2 W1^T + b1:
+//   df2 = keep2 * dy; df1 = (df2 W2) * gelu'(f1), g = gelu(f1); dh2 = df1 W1;
+//   dx2 = dy + LN2'(dh2); dproj = keep1 * dx2; do = dproj Wproj;
+//   dqkv, d(mb) = the attention backward; dh1 = dqkv Wqkv; dx = dx2 + LN1'(dh1);
+//   then both halves' LayerNorm, weight and bias gradients as row-split sums
+//   (col_sums, the TN GEMM) that one reduce_splits launch adds in split
+//   order, with d(mb), summed over the windows in f32, cast to mb's dtype in
+//   the same launch.
+// The planted faults of the checks: rowsum = 0 (the softmax backward without
+// its rowsum term), gelu_grad = 0 (gelu' replaced by 1 and g left 0),
+// row_scale_on = 0 (the recompute of x2 ignoring keep1).
+#include <algorithm>
+#include <cmath>
+#include <cstddef>
+
+#include <cuda_runtime.h>
+
+#include "launches.h"
+
+namespace {
+
+constexpr int kBF16 = 1;
+constexpr int kSplitBlocks = 264;  // cuda_lib._SPLIT_BLOCKS: blocks a row-split sum aims for
+constexpr int kAttnBlocks = 1056;  // cuda_lib.window_attention_bwd's blocks
+enum Weight { kLn1G, kLn1B, kWqkv, kBqkv, kWproj, kBproj, kLn2G, kLn2B, kW1, kB1, kW2, kB2 };
+
+using bf16 = unsigned short;  // storage only: the launches take void*
+
+// cuda_lib._rows_per_split: enough splits that `blocks` blocks per split fill
+// about kSplitBlocks, each split at least 256 rows
+int rows_per_split(long long rows, int blocks) {
+  const long long splits =
+      std::max(1LL, std::min((long long)(kSplitBlocks + blocks - 1) / blocks, rows / 256));
+  return (int)((rows + splits - 1) / splits);
+}
+
+// 256-byte aligned regions of the scratch buffer; with a null base it only
+// counts the bytes
+struct Arena {
+  char* base;
+  size_t used;
+  template <typename T> T* take(size_t n) {
+    const size_t off = (used + 255) & ~size_t(255);
+    used = off + n * sizeof(T);
+    return base == nullptr ? nullptr : reinterpret_cast<T*>(base + off);
+  }
+};
+
+struct Dims {
+  int R, N, C, hidden, H, P;
+  long long rows() const { return (long long)R * N; }
+};
+
+// One row-split sum of the backward: `splits` f32 partials of `len` floats
+// in ws (none with one split: the launch then writes the gradient itself)
+struct Sum {
+  int per, splits;
+  long long len;
+  float* ws;
+};
+
+Sum plan_sum(Arena& a, long long rows, long long len, int blocks) {
+  Sum s;
+  s.per = rows_per_split(rows, blocks);
+  s.splits = (int)((rows + s.per - 1) / s.per);
+  s.len = len;
+  s.ws = s.splits > 1 ? a.take<float>((size_t)s.splits * len) : nullptr;
+  return s;
+}
+
+int tn_blocks(int o, int i) { return ((o + 63) / 64) * ((i + 127) / 128); }  // 64 x 128 tiles
+
+struct Fwd {
+  bf16 *h, *qkv, *o, *x2, *g;
+  float *mu, *rstd;
+};
+
+Fwd fwd_layout(Arena& a, const Dims& d) {
+  const size_t rc = d.rows() * d.C;
+  Fwd r;
+  r.h = a.take<bf16>(rc);  // LN1(x), then LN2(x2)
+  r.qkv = a.take<bf16>(3 * rc);
+  r.o = a.take<bf16>(rc);
+  r.x2 = a.take<bf16>(rc);
+  r.g = a.take<bf16>(d.rows() * d.hidden);
+  r.mu = a.take<float>(d.rows());
+  r.rstd = a.take<float>(d.rows());
+  return r;
+}
+
+struct Bwd {
+  bf16 *h1, *qkv, *o, *x2, *h2, *f1, *df2, *g, *df1, *dh2, *dx2, *dproj, *dout, *dqkv, *dh1;
+  float *mu1, *rstd1, *mu2, *rstd2, *dmb;
+  Sum ln2, w1, w2, ln1, wqkv, wproj;
+};
+
+Bwd bwd_layout(Arena& a, const Dims& d) {
+  const long long rows = d.rows();
+  const size_t rc = rows * d.C, rh = rows * d.hidden;
+  const int C = d.C, hid = d.hidden;
+  Bwd r;
+  r.h1 = a.take<bf16>(rc);
+  r.qkv = a.take<bf16>(3 * rc);
+  r.o = a.take<bf16>(rc);
+  r.x2 = a.take<bf16>(rc);
+  r.h2 = a.take<bf16>(rc);
+  r.f1 = a.take<bf16>(rh);
+  r.df2 = a.take<bf16>(rc);
+  r.g = a.take<bf16>(rh);
+  r.df1 = a.take<bf16>(rh);
+  r.dh2 = a.take<bf16>(rc);
+  r.dx2 = a.take<bf16>(rc);
+  r.dproj = a.take<bf16>(rc);
+  r.dout = a.take<bf16>(rc);
+  r.dqkv = a.take<bf16>(3 * rc);
+  r.dh1 = a.take<bf16>(rc);
+  r.mu1 = a.take<float>(rows);
+  r.rstd1 = a.take<float>(rows);
+  r.mu2 = a.take<float>(rows);
+  r.rstd2 = a.take<float>(rows);
+  r.dmb = a.take<float>((size_t)d.P * d.H * d.N * d.N);
+  r.ln2 = plan_sum(a, rows, 2LL * C, (C + 31) / 32);
+  r.w1 = plan_sum(a, rows, (long long)hid * C + hid, tn_blocks(hid, C));  // dW1 (hidden, C)
+  r.w2 = plan_sum(a, rows, (long long)C * hid + C, tn_blocks(C, hid));    // dW2 (C, hidden)
+  r.ln1 = plan_sum(a, rows, 2LL * C, (C + 31) / 32);
+  r.wqkv = plan_sum(a, rows, 3LL * C * C + 3 * C, tn_blocks(3 * C, C));
+  r.wproj = plan_sum(a, rows, (long long)C * C + C, tn_blocks(C, C));
+  return r;
+}
+
+char* aligned256(void* p) {
+  const size_t a = reinterpret_cast<size_t>(p);
+  return reinterpret_cast<char*>((a + 255) & ~size_t(255));
+}
+
+bool bad_dims(const Dims& d) {
+  return d.R <= 0 || d.N <= 0 || d.C <= 0 || d.hidden <= 0 || d.H <= 0 || d.C % d.H ||
+         d.P <= 0 || d.R % d.P;
+}
+
+// o = attention(qkv, mb) on the packed (R*N, 3C) rows, as
+// cuda_lib.packed_window_attention launches it
+int attention(const bf16* qkv, bf16* o, const Dims& d, const void* mb, int mb_dtype,
+              const int* s, void* stream) {
+  const int C = d.C, hd = C / d.H;
+  return mumpy_window_attention(qkv, qkv + C, qkv + 2 * C, o, mb, d.R, d.N, d.H, hd, d.R,
+                                3 * C, 3 * C, 3 * C, C, d.P, mb_dtype, s[0], s[1], s[2], s[3],
+                                1.f / std::sqrt((float)hd), kBF16, stream);
+}
+
+#define TRY(call)                        \
+  do {                                   \
+    const int err_ = (int)(call);        \
+    if (err_ != 0) return err_;          \
+  } while (0)
+
+}  // namespace
+
+extern "C" long long mumpy_swin_block_train_scratch(int R, int N, int C, int hidden, int H,
+                                                    int P, int backward) {
+  const Dims d{R, N, C, hidden, H, P};
+  if (bad_dims(d)) return -1;
+  Arena a{nullptr, 0};
+  if (backward) bwd_layout(a, d);
+  else fwd_layout(a, d);
+  return (long long)a.used + 256;  // and the base's alignment
+}
+
+extern "C" int mumpy_swin_block_train_fwd(const void* x, const void* mb, int mb_dtype,
+                                          int mb_s0, int mb_s1, int mb_s2, int mb_s3,
+                                          const float* keep1, const float* keep2,
+                                          const void* const* w, void* y, void* scratch, int R,
+                                          int N, int C, int hidden, int H, int P,
+                                          void* stream) {
+  const Dims d{R, N, C, hidden, H, P};
+  if (bad_dims(d) || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  Arena a{aligned256(scratch), 0};
+  const Fwd r = fwd_layout(a, d);
+  const int rows = R * N, s[4] = {mb_s0, mb_s1, mb_s2, mb_s3};
+  TRY(mumpy_ln_rows(x, w[kLn1G], w[kLn1B], r.h, r.mu, r.rstd, rows, C, kBF16, stream));
+  TRY(mumpy_gemm_sm90(r.h, w[kWqkv], w[kBqkv], nullptr, nullptr, nullptr, r.qkv, nullptr,
+                      nullptr, rows, 3 * C, C, 1, 0, 1, 1, stream));
+  TRY(attention(r.qkv, r.o, d, mb, mb_dtype, s, stream));
+  TRY(mumpy_gemm_sm90(r.o, w[kWproj], w[kBproj], x, keep1, nullptr, nullptr, r.x2, nullptr,
+                      rows, C, C, 1, 0, N, 1, stream));
+  TRY(mumpy_ln_rows(r.x2, w[kLn2G], w[kLn2B], r.h, r.mu, r.rstd, rows, C, kBF16, stream));
+  TRY(mumpy_gemm_sm90(r.h, w[kW1], w[kB1], nullptr, nullptr, nullptr, r.g, nullptr, nullptr,
+                      rows, hidden, C, 1, 1, 1, 1, stream));
+  TRY(mumpy_gemm_sm90(r.g, w[kW2], w[kB2], r.x2, keep2, nullptr, nullptr, y, nullptr, rows, C,
+                      hidden, 1, 0, N, 1, stream));
+  return 0;
+}
+
+extern "C" int mumpy_swin_block_train_bwd(const void* x, const void* dy, const void* mb,
+                                          int mb_dtype, int mb_s0, int mb_s1, int mb_s2,
+                                          int mb_s3, const float* keep1, const float* keep2,
+                                          const void* const* w, void* dx, void* dmb,
+                                          void* const* dw, void* scratch, int R, int N, int C,
+                                          int hidden, int H, int P, int rowsum, int gelu_grad,
+                                          int row_scale_on, void* stream) {
+  const Dims d{R, N, C, hidden, H, P};
+  if (bad_dims(d) || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  char* base = aligned256(scratch);
+  Arena a{base, 0};
+  const Bwd r = bwd_layout(a, d);
+  const int rows = R * N, hd = C / H, s[4] = {mb_s0, mb_s1, mb_s2, mb_s3};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  // recompute the attention half from x, and x2 (keep1 as the row scale)
+  TRY(mumpy_ln_rows(x, w[kLn1G], w[kLn1B], r.h1, r.mu1, r.rstd1, rows, C, kBF16, stream));
+  TRY(mumpy_gemm_sm90(r.h1, w[kWqkv], w[kBqkv], nullptr, nullptr, nullptr, r.qkv, nullptr,
+                      nullptr, rows, 3 * C, C, 1, 0, 1, 1, stream));
+  TRY(attention(r.qkv, r.o, d, mb, mb_dtype, s, stream));
+  TRY(mumpy_gemm_sm90(r.o, w[kWproj], w[kBproj], x, keep1, nullptr, nullptr, r.x2, nullptr,
+                      rows, C, C, 1, 0, N, row_scale_on, stream));
+
+  // the MLP half (ln_mlp_train.py:launch_ln_mlp_train_bwd with keep2 per window)
+  TRY(mumpy_ln_rows(r.x2, w[kLn2G], w[kLn2B], r.h2, r.mu2, r.rstd2, rows, C, kBF16, stream));
+  TRY(mumpy_gemm_sm90(r.h2, w[kW1], w[kB1], nullptr, nullptr, nullptr, r.f1, nullptr, nullptr,
+                      rows, hidden, C, 1, 0, 1, 1, stream));
+  TRY(mumpy_scale_add_rows(nullptr, dy, keep2, r.df2, rows, C, N, kBF16, stream));
+  if (gelu_grad) {
+    TRY(mumpy_gemm_sm90(r.df2, w[kW2], nullptr, nullptr, nullptr, r.f1, r.df1, nullptr, r.g,
+                        rows, hidden, C, 0, 2, 1, 1, stream));
+  } else {
+    TRY(cudaMemsetAsync(r.g, 0, (size_t)rows * hidden * sizeof(bf16), st));
+    TRY(mumpy_gemm_sm90(r.df2, w[kW2], nullptr, nullptr, nullptr, nullptr, r.df1, nullptr,
+                        nullptr, rows, hidden, C, 0, 0, 1, 1, stream));
+  }
+  TRY(mumpy_gemm_sm90(r.df1, w[kW1], nullptr, nullptr, nullptr, nullptr, r.dh2, nullptr,
+                      nullptr, rows, C, hidden, 0, 0, 1, 1, stream));
+  TRY(mumpy_ln_bwd_rows(r.x2, r.mu2, r.rstd2, w[kLn2G], r.dh2, dy, r.dx2, rows, C, kBF16,
+                        stream));
+  TRY(mumpy_col_sums(r.dh2, r.x2, r.mu2, r.rstd2, r.ln2.ws, dw[kLn2G], dw[kLn2B], rows, C,
+                     r.ln2.per, kBF16, stream));
+  TRY(mumpy_gemm_sm90_tn(r.df1, r.h2, r.w1.ws, dw[kW1], dw[kB1], rows, hidden, C, r.w1.per,
+                         stream));
+  TRY(mumpy_gemm_sm90_tn(r.df2, r.g, r.w2.ws, dw[kW2], dw[kB2], rows, C, hidden, r.w2.per,
+                         stream));
+
+  // the attention half (attn_ln_train.py:attn_bwd_from with keep1 per window)
+  TRY(mumpy_scale_add_rows(nullptr, r.dx2, keep1, r.dproj, rows, C, N, kBF16, stream));
+  TRY(mumpy_gemm_sm90(r.dproj, w[kWproj], nullptr, nullptr, nullptr, nullptr, r.dout, nullptr,
+                      nullptr, rows, C, C, 0, 0, 1, 1, stream));
+  const size_t n_mb = (size_t)P * H * N * N;
+  TRY(cudaMemsetAsync(r.dmb, 0, n_mb * sizeof(float), st));
+  const int chunks = std::max(1, std::min(R / P, (kAttnBlocks + H * P - 1) / (H * P)));
+  TRY(mumpy_window_attention_bwd(r.qkv, r.dout, mb, r.dqkv, r.dmb, R, N, H, hd, P, mb_dtype,
+                                 s[0], s[1], s[2], s[3], chunks, 1.f / std::sqrt((float)hd),
+                                 rowsum, kBF16, stream));
+  TRY(mumpy_gemm_sm90(r.dqkv, w[kWqkv], nullptr, nullptr, nullptr, nullptr, r.dh1, nullptr,
+                      nullptr, rows, C, 3 * C, 0, 0, 1, 1, stream));
+  TRY(mumpy_ln_bwd_rows(x, r.mu1, r.rstd1, w[kLn1G], r.dh1, r.dx2, dx, rows, C, kBF16, stream));
+  TRY(mumpy_col_sums(r.dh1, x, r.mu1, r.rstd1, r.ln1.ws, dw[kLn1G], dw[kLn1B], rows, C,
+                     r.ln1.per, kBF16, stream));
+  TRY(mumpy_gemm_sm90_tn(r.dqkv, r.h1, r.wqkv.ws, dw[kWqkv], dw[kBqkv], rows, 3 * C, C,
+                         r.wqkv.per, stream));
+  TRY(mumpy_gemm_sm90_tn(r.dproj, r.o, r.wproj.ws, dw[kWproj], dw[kBproj], rows, C, C,
+                         r.wproj.per, stream));
+
+  // one launch: every split sum in split order, and d(mb) cast to mb's dtype
+  long long desc[5 * 7];
+  void* outs[2 * 7];
+  int n = 0;
+  auto add = [&](const float* ws, int splits, long long len1, long long len2, int dtype,
+                 void* out1, void* out2) {
+    const long long v[5] = {(long long)((const char*)ws - base) / 4, splits, len1, len2, dtype};
+    std::copy(v, v + 5, desc + 5 * n);
+    outs[2 * n] = out1;
+    outs[2 * n + 1] = out2;
+    ++n;
+  };
+  const Sum* sums[6] = {&r.ln2, &r.w1, &r.w2, &r.ln1, &r.wqkv, &r.wproj};
+  const Weight firsts[6] = {kLn2G, kW1, kW2, kLn1G, kWqkv, kWproj};
+  const long long firsts_len[6] = {C, (long long)hidden * C, (long long)C * hidden, C,
+                                   3LL * C * C, (long long)C * C};
+  for (int i = 0; i < 6; ++i)
+    if (sums[i]->splits > 1)
+      add(sums[i]->ws, sums[i]->splits, firsts_len[i], sums[i]->len - firsts_len[i], kBF16,
+          dw[firsts[i]], dw[firsts[i] + 1]);
+  add(r.dmb, 1, (long long)n_mb, 0, mb_dtype, dmb, nullptr);
+  TRY(mumpy_reduce_splits(reinterpret_cast<const float*>(base), n, desc, outs, stream));
+  return 0;
+}

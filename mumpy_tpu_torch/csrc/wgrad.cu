@@ -8,7 +8,9 @@
 //   col_sums:      dg[c] = sum_m dh[m, c] * xhat[m, c],  db[c] = sum_m dh[m, c]:
 //                  the LayerNorm scale and bias gradients, xhat from x and the
 //                  f32 row statistics ln_rows wrote
-//   reduce_splits: out = T(sum_s ws[s, :]), the sum of the row splits' partials
+//   reduce_splits: out = T(sum_s ws[s, :]), the sum of the row splits' partials,
+//                  for up to kMaxSums workspaces, each with its own T, in one
+//                  launch
 //
 // Replace the weight-gradient sums of
 // mumpy_tpu/ops/pallas/swin_block_vjp.py:_train_bwd_dw_kernel, which
@@ -18,10 +20,10 @@
 // grid.y) and every split writes an f32 partial to a workspace;
 // reduce_splits adds the partials in split order, so the result does not
 // depend on the schedule.  With one split the kernel writes T directly.
-// Accumulation is f32; bf16 runs on the tensor cores (wmma 16x16x16, A read
-// column-major from its row-major tile), f32 on a SIMT loop with fmaf.
-#include <mma.h>
-
+// gemm_tn here is the f32 form, a SIMT loop with fmaf; the bf16 weight
+// gradients run on the tensor cores in gemm_sm90.cu's TN form, whose row
+// splits reduce_splits adds the same way.  col_sums and reduce_splits take
+// both types and accumulate in f32.
 #include "common.cuh"
 
 namespace mumpy {
@@ -98,109 +100,6 @@ __global__ void __launch_bounds__(kTnThreads) gemm_tn_f32_kernel(TnArgs p) {
     tn_store<float>(p, (size_t)p.O * p.I + o0 + tid, csum);
 }
 
-// ---- bf16 tensor cores: 128x128 tiles of dW, 32 rows of M per step ----
-// O and I multiples of 8, 16-byte aligned operands.  Each step stages the
-// (32 x 128) slices of A and B row-major in shared memory; the MMAs read A's
-// slice as a column-major 128 x 32 matrix (A^T), B's as row-major 32 x 128.
-// 8 warps of 64x32 (4x2 fragments), the next slices prefetched into
-// registers during the MMAs, and a per-warp epilogue through a staging tile.
-constexpr int kTcBM = 128, kTcBK = 32, kTcThreads = 256;
-constexpr int kLd = kTcBM + 8, kLdS = 16 + 4;  // padded pitches
-
-__global__ void __launch_bounds__(kTcThreads, 2) gemm_tn_bf16_kernel(TnArgs p) {
-  using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 As[kTcBK * kLd];  // [m][o]
-  __shared__ __align__(128) __nv_bfloat16 Bs[kTcBK * kLd];  // [m][i]
-  __shared__ __align__(128) float stage[kTcThreads / 32][16 * kLdS];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;  // warp's 64x32 sub-tile
-  const int o0 = blockIdx.y * kTcBM, i0 = blockIdx.x * kTcBM;
-  const int m_begin = blockIdx.z * p.rows_per_split;
-  const int m_end = min(p.M, m_begin + p.rows_per_split);
-  const bool sums = blockIdx.x == 0;
-  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
-  const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b);
-  // this thread's vectors: rows kr and kr + 16 of the step, 8 columns at nc
-  const int kr = tid >> 4, nc = (tid & 15) * 8;
-  auto load = [&](const __nv_bfloat16* src, int ld, int c0, int m) {
-    if (m >= m_end || c0 + nc >= ld) return make_uint4(0, 0, 0, 0);
-    return ldg8(src + (size_t)m * ld + c0 + nc);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  float csum = 0.f;
-
-  uint4 a0 = load(A, p.O, o0, m_begin + kr), a1 = load(A, p.O, o0, m_begin + kr + 16);
-  uint4 b0 = load(B, p.I, i0, m_begin + kr), b1 = load(B, p.I, i0, m_begin + kr + 16);
-  for (int k0 = m_begin; k0 < m_end; k0 += kTcBK) {
-    *reinterpret_cast<uint4*>(As + kr * kLd + nc) = a0;
-    *reinterpret_cast<uint4*>(As + (kr + 16) * kLd + nc) = a1;
-    *reinterpret_cast<uint4*>(Bs + kr * kLd + nc) = b0;
-    *reinterpret_cast<uint4*>(Bs + (kr + 16) * kLd + nc) = b1;
-    __syncthreads();
-    const int k1 = k0 + kTcBK;
-    if (k1 < m_end) {  // next slices in flight during the MMAs
-      a0 = load(A, p.O, o0, k1 + kr);
-      a1 = load(A, p.O, o0, k1 + kr + 16);
-      b0 = load(B, p.I, i0, k1 + kr);
-      b1 = load(B, p.I, i0, k1 + kr + 16);
-    }
-    if (sums && tid < kTcBM) {
-#pragma unroll 8
-      for (int kk = 0; kk < kTcBK; ++kk) csum += __bfloat162float(As[kk * kLd + tid]);
-    }
-#pragma unroll
-    for (int ks = 0; ks < kTcBK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As + ks * kLd + wm + 16 * i, kLd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + ks * kLd + wn + 16 * j, kLd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // per-warp epilogue: stage one 16x16 fragment, each lane finishes 8 columns
-  float* st = stage[warp];
-  const int sr = lane >> 1, sc = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], kLdS, wmma::mem_row_major);
-      __syncwarp();
-      const int o = o0 + wm + 16 * i + sr, c = i0 + wn + 16 * j + sc;
-      if (o < p.O && c < p.I) {
-        float f[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = st[sr * kLdS + sc + e];
-        const size_t idx = (size_t)o * p.I + c;
-        if (p.ws != nullptr) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) tn_store<__nv_bfloat16>(p, idx + e, f[e]);
-        } else {
-          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.dw) + idx) = pack8(f);
-        }
-      }
-      __syncwarp();
-    }
-  }
-  if (sums && tid < kTcBM && o0 + tid < p.O)
-    tn_store<__nv_bfloat16>(p, (size_t)p.O * p.I + o0 + tid, csum);
-}
-
 // ---- LayerNorm parameter gradients: 32 columns x one row split per block ----
 constexpr int kColThreads = 256, kColWarps = kColThreads / 32;
 
@@ -242,16 +141,34 @@ col_sums_kernel(const T* __restrict__ dh, const T* __restrict__ x, const float* 
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-reduce_splits_kernel(const float* __restrict__ ws, int splits, int len1, T* __restrict__ out1,
-                     int len2, T* __restrict__ out2) {
-  const int len = len1 + len2;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < len; e += gridDim.x * blockDim.x) {
+// The workspaces one reduce_splits launch adds: entry i holds `splits`
+// partials of len1 + len2 floats from element off of ws, summed in split
+// order and rounded to its type (f32 or bf16) into out1 (len1) and out2
+// (len2, may be 0); start is the running count of elements, start[n] the
+// total.
+constexpr int kMaxSums = 8;
+struct SplitSums {
+  long long off[kMaxSums];
+  int splits[kMaxSums], len1[kMaxSums], len2[kMaxSums], bf16[kMaxSums], start[kMaxSums + 1];
+  void* out1[kMaxSums];
+  void* out2[kMaxSums];
+  int n;
+};
+
+__global__ void __launch_bounds__(256) reduce_splits_kernel(const float* __restrict__ ws,
+                                                            SplitSums p) {
+  const int total = p.start[p.n];
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < total; g += gridDim.x * blockDim.x) {
+    int i = 0;
+    while (g >= p.start[i + 1]) ++i;
+    const int e = g - p.start[i], len = p.len1[i] + p.len2[i];
+    const float* w = ws + p.off[i] + e;
     float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += ws[(size_t)k * len + e];
-    if (e < len1) out1[e] = from_f<T>(s);
-    else out2[e - len1] = from_f<T>(s);
+    for (int k = 0; k < p.splits[i]; ++k) s += w[(size_t)k * len];
+    void* out = e < p.len1[i] ? p.out1[i] : p.out2[i];
+    const int at = e < p.len1[i] ? e : e - p.len1[i];
+    if (p.bf16[i]) static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(s);
+    else static_cast<float*>(out)[at] = s;
   }
 }
 
@@ -267,15 +184,9 @@ extern "C" int mumpy_gemm_tn(const void* a, const void* b, float* ws, void* dw, 
   TnArgs p{a, b, ws, dw, db, M, O, I, rows_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int splits = (M + rows_per_split - 1) / rows_per_split;
-  if (dtype == kBF16) {
-    if (O % 8 || I % 8 || !aligned16(a) || !aligned16(b) || !aligned16(dw) || !aligned16(ws))
-      return (int)cudaErrorInvalidValue;
-    dim3 grid((I + kTcBM - 1) / kTcBM, (O + kTcBM - 1) / kTcBM, splits);
-    gemm_tn_bf16_kernel<<<grid, kTcThreads, 0, s>>>(p);
-  } else {
-    dim3 grid((I + kTnBM - 1) / kTnBM, (O + kTnBM - 1) / kTnBM, splits);
-    gemm_tn_f32_kernel<<<grid, kTnThreads, 0, s>>>(p);
-  }
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;  // bf16: mumpy_gemm_sm90_tn
+  dim3 grid((I + kTnBM - 1) / kTnBM, (O + kTnBM - 1) / kTnBM, splits);
+  gemm_tn_f32_kernel<<<grid, kTnThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -299,19 +210,34 @@ extern "C" int mumpy_col_sums(const void* dh, const void* x, const float* mu, co
   return (int)cudaGetLastError();
 }
 
-extern "C" int mumpy_reduce_splits(const float* ws, int splits, int len1, void* out1, int len2,
-                                   void* out2, int dtype, void* stream) {
+// desc holds (off, splits, len1, len2, dtype) for each of the n entries,
+// outs their (out1, out2); both are host arrays, read here.
+extern "C" int mumpy_reduce_splits(const float* ws, int n, const long long* desc,
+                                   void* const* outs, void* stream) {
   using namespace mumpy;
-  if (splits <= 0 || len1 <= 0 || len2 <= 0 || out1 == nullptr || out2 == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (ws == nullptr || n <= 0 || n > kMaxSums) return (int)cudaErrorInvalidValue;
+  SplitSums p{};
+  p.n = n;
+  long long total = 0;
+  for (int i = 0; i < n; ++i) {
+    p.off[i] = desc[5 * i];
+    p.splits[i] = (int)desc[5 * i + 1];
+    p.len1[i] = (int)desc[5 * i + 2];
+    p.len2[i] = (int)desc[5 * i + 3];
+    p.bf16[i] = desc[5 * i + 4] == kBF16;
+    p.out1[i] = outs[2 * i];
+    p.out2[i] = outs[2 * i + 1];
+    if (p.splits[i] <= 0 || p.len1[i] <= 0 || p.len2[i] < 0 || p.out1[i] == nullptr ||
+        (p.len2[i] > 0 && p.out2[i] == nullptr))
+      return (int)cudaErrorInvalidValue;
+    p.start[i] = (int)total;
+    total += p.len1[i] + p.len2[i];
+  }
+  if (total > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  p.start[n] = (int)total;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int need = (len1 + len2 + 255) / 256, blocks = need < 1024 ? need : 1024;
-  if (dtype == kBF16)
-    reduce_splits_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-        ws, splits, len1, static_cast<__nv_bfloat16*>(out1), len2,
-        static_cast<__nv_bfloat16*>(out2));
-  else
-    reduce_splits_kernel<float><<<blocks, 256, 0, st>>>(
-        ws, splits, len1, static_cast<float*>(out1), len2, static_cast<float*>(out2));
+  const long long need = (total + 255) / 256;
+  const int blocks = need < 1024 ? (int)need : 1024;
+  reduce_splits_kernel<<<blocks, 256, 0, st>>>(ws, p);
   return (int)cudaGetLastError();
 }

@@ -1,36 +1,37 @@
-// Window attention core: one block per (window, head).
+// Window attention core.
 //
 //   o[r, i, h] = softmax_j(q[r % q_mod, i, h] . k[r, j, h] * scale + mb[r % P, h, i, j]) v[r, j, h]
 //
 // q/k/v/o are token rows with their own row strides (ld*) and point at head
-// 0's column; head h starts hd columns further.  With mb == null there is no
-// additive term and keys j >= N are masked explicitly (the CVA core); with mb
-// it is (P, H, N, 64) f32 whose key-pad columns j >= N hold -1e30, so the
-// additive term doubles as the pad mask (as swin_block.prepare_weights does).
+// 0's column; head h starts hd columns further.  mb is (P, H, N, N) in f32
+// or bf16 (mb_dtype) with element strides mb_s0..3, or null for no additive
+// term (the CVA core); a window is padded to 64 keys and the keys j >= N are
+// masked by the kernel.
 //
 // Replaces the per-head attention loops of the Pallas kernels
 // mumpy_tpu/ops/pallas/{swin_block,attn_ln,cva}.py.  A window holds N <= 64
 // tokens and hd <= 32, so q, k and v of one head fit in shared memory.  bf16
 // at hd = 32 (every flagship head) runs both products on the tensor cores
-// (window_attention_tc_kernel); f32 and other head widths run the SIMT kernel,
-// where each warp owns whole query rows: lane j and j+32 score one key each,
-// the softmax is two warp reductions, and lane d accumulates output column d.
-// The work per block is small (N*N*hd*2 MACs per product); the SIMT kernel is
-// bound by its instruction issue, the tensor-core one by staging q/k/v.
-#include <mma.h>
-
-#include "common.cuh"
+// (window_attention_tc_kernel, below); f32 and other head widths run the SIMT
+// kernel, one block per (window, head), where each warp owns whole query
+// rows: lane j and j+32 score one key each, the softmax is two warp
+// reductions, and lane d accumulates output column d.  At N = 49 and hd = 32
+// the work is bound by device-memory bytes (about 25 flops per byte of q, k,
+// v, o and mask+bias in bf16, against the H100's ~295 for its tensor cores);
+// the tensor-core kernel reads each byte once, keeps scores and
+// probabilities in registers and overlaps the next window's loads with the
+// current one's products.  The SIMT kernel is bound by its instruction issue.
+#include "window_attention_mma.cuh"
 
 namespace mumpy {
 
 constexpr int kAttnThreads = 128;
-constexpr int kMaxN = 64;
 
 template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
 window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ o,
-                        const float* __restrict__ mb, int N, int H, int hd,
+                        MaskBias mb, int N, int H, int hd,
                         int q_mod, int ldq, int ldk, int ldv, int ldo, int P,
                         float scale) {
   extern __shared__ float sm[];
@@ -56,7 +57,6 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int warp = tid >> 5, lane = tid & 31;
   float* pw = ps + warp * kMaxN;
-  const float* mbh = mb ? mb + ((size_t)(r % P) * H + h) * N * kMaxN : nullptr;
   for (int i = warp; i < N; i += kAttnThreads / 32) {
     const float* qi = qs + i * hp;
     const float* k0 = ks + lane * hp;
@@ -68,13 +68,12 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     s0 *= scale;
     s1 *= scale;
-    if (mbh != nullptr) {
-      s0 += mbh[i * kMaxN + lane];
-      s1 += mbh[i * kMaxN + lane + 32];
-    } else {
-      if (lane >= N) s0 = -1e30f;
-      if (lane + 32 >= N) s1 = -1e30f;
+    if (mb.p != nullptr) {
+      if (lane < N) s0 += mb.at(r % P, h, i, lane);
+      if (lane + 32 < N) s1 += mb.at(r % P, h, i, lane + 32);
     }
+    if (lane >= N) s0 = -1e30f;
+    if (lane + 32 >= N) s1 = -1e30f;
     const float mx = warp_max(fmaxf(s0, s1));
     const float e0 = expf(s0 - mx), e1 = expf(s1 - mx);
     const float inv = 1.f / warp_sum(e0 + e1);
@@ -91,122 +90,88 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// bf16 with hd = 32 on the tensor cores: each of the 4 warps owns one 16-row
-// query tile; S = Q K^T and O = P V are wmma 16x16x16 products on q/k/v
-// staged in shared memory with 16-byte loads (rows >= N zero), and the
-// softmax runs on the warp's 16x64 f32 score tile, two lanes per row.
-constexpr int kTcHd = 32;
-constexpr int kQkvLd = kTcHd + 8;  // padded pitches: every wmma origin 32-byte aligned
-constexpr int kSLd = kMaxN + 4, kPLd = kMaxN + 8;
+// bf16 at hd = 32 (every flagship head) on the tensor cores, mma.sync
+// m16n8k16.  A block takes one head and the windows of one mask slot in turn
+// (r = p, p + P, ...), so the slot's mask+bias is read once, into registers,
+// for all of them.  Each window's q, k and v (64-byte runs of the token rows)
+// come in by cp.async into the second of two buffers while the first one
+// computes; rows >= N are zero-filled.  Each of the 4 warps owns 16 query
+// rows: S = Q K^T lands in registers (16 x 64 f32: a whole row of keys, so no
+// online softmax), the softmax runs there in f32, P rounded to bf16 is the A
+// operand of P V straight from those registers (an m16n8 accumulator pair is
+// an m16n8k16 A fragment), and the 16 x 32 output leaves through a per-warp
+// shared tile as 16-byte stores.  K^T and V reach the B operand through
+// ldmatrix (V with .trans).
+constexpr int kTcBlocks = 1056;  // about 8 blocks per SM of an H100 (132 SMs)
 
 __global__ void __launch_bounds__(kAttnThreads)
 window_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                           const float* __restrict__ mb, int N, int H, int q_mod, int ldq,
-                           int ldk, int ldv, int ldo, int P, float scale) {
-  using namespace nvcuda;
-  __shared__ __align__(128) __nv_bfloat16 qs[kMaxN * kQkvLd];
-  __shared__ __align__(128) __nv_bfloat16 ks[kMaxN * kQkvLd];
-  __shared__ __align__(128) __nv_bfloat16 vs[kMaxN * kQkvLd];
-  __shared__ __align__(128) float ss[kAttnThreads / 32][16 * kSLd];
-  __shared__ __align__(128) __nv_bfloat16 ps[kAttnThreads / 32][16 * kPLd];
+                           MaskBias mb, int R, int N, int H, int q_mod,
+                           int ldq, int ldk, int ldv, int ldo, int P, int wpb, float scale) {
+  __shared__ __align__(128) __nv_bfloat16 buf[2][3][kTcTile];  // q, k, v of two windows
+  __shared__ __align__(128) __nv_bfloat16 ost[kAttnThreads / 32][16 * kTcPitch];
 
-  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int h = blockIdx.x, p = blockIdx.y;
+  const int j0 = blockIdx.z * wpb, j1 = min(R / P, j0 + wpb);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const __nv_bfloat16* qb = q + (size_t)(r % q_mod) * N * ldq + h * kTcHd;
-  const __nv_bfloat16* kb = k + (size_t)r * N * ldk + h * kTcHd;
-  const __nv_bfloat16* vb = v + (size_t)r * N * ldv + h * kTcHd;
-  for (int e = tid; e < kMaxN * (kTcHd / 8); e += kAttnThreads) {
-    const int i = e / (kTcHd / 8), c = (e % (kTcHd / 8)) * 8;
-    uint4 zq = make_uint4(0, 0, 0, 0), zk = zq, zv = zq;
-    if (i < N) {
-      zq = ldg8(qb + (size_t)i * ldq + c);
-      zk = ldg8(kb + (size_t)i * ldk + c);
-      zv = ldg8(vb + (size_t)i * ldv + c);
-    }
-    *reinterpret_cast<uint4*>(qs + i * kQkvLd + c) = zq;
-    *reinterpret_cast<uint4*>(ks + i * kQkvLd + c) = zk;
-    *reinterpret_cast<uint4*>(vs + i * kQkvLd + c) = zv;
-  }
-  __syncthreads();
-  const int i0 = warp * 16;
-  if (i0 >= N) return;  // no block-wide barrier follows
+  const int g = lane >> 2, t = lane & 3, i0 = warp * 16;
 
-  // S = Q K^T: this warp's 16 rows against the 64 (padded) keys
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> s_acc[kMaxN / 16];
-#pragma unroll
-  for (int j = 0; j < kMaxN / 16; ++j) wmma::fill_fragment(s_acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < kTcHd; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, qs + i0 * kQkvLd + kk, kQkvLd);
-#pragma unroll
-    for (int j = 0; j < kMaxN / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, ks + 16 * j * kQkvLd + kk, kQkvLd);  // K^T
-      wmma::mma_sync(s_acc[j], a, b, s_acc[j]);
+  auto load = [&](int j, int b) {
+    const int r = p + j * P;
+    const __nv_bfloat16* qb = q + (size_t)(r % q_mod) * N * ldq + h * kTcHd;
+    const __nv_bfloat16* kb = k + (size_t)r * N * ldk + h * kTcHd;
+    const __nv_bfloat16* vb = v + (size_t)r * N * ldv + h * kTcHd;
+    for (int e = tid; e < kMaxN * 4; e += kAttnThreads) {
+      const int i = e >> 2, c = (e & 3) * 8;
+      const bool ok = i < N;
+      const size_t ii = ok ? i : 0;
+      cp_async16(&buf[b][0][i * kTcPitch + c], qb + ii * ldq + c, ok);
+      cp_async16(&buf[b][1][i * kTcPitch + c], kb + ii * ldk + c, ok);
+      cp_async16(&buf[b][2][i * kTcPitch + c], vb + ii * ldv + c, ok);
     }
-  }
-  float* st = ss[warp];
-#pragma unroll
-  for (int j = 0; j < kMaxN / 16; ++j)
-    wmma::store_matrix_sync(st + 16 * j, s_acc[j], kSLd, wmma::mem_row_major);
-  __syncwarp();
+    cp_async_commit();
+  };
 
-  // softmax: lanes 2t and 2t+1 share row t, 32 keys each
-  const int row = lane >> 1, half = (lane & 1) * 32;
-  const int i = i0 + row;
-  const float* mrow =
-      mb ? mb + (((size_t)(r % P) * H + h) * N + min(i, N - 1)) * kMaxN + half : nullptr;
-  float sv[32];
-  float mx = -3.0e38f;
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    float x = st[row * kSLd + half + e] * scale;
-    if (mrow != nullptr) x += mrow[e];
-    else if (half + e >= N) x = -1e30f;
-    sv[e] = x;
-    mx = fmaxf(mx, x);
-  }
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  float sum = 0.f;
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    sv[e] = expf(sv[e] - mx);
-    sum += sv[e];
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  const float inv = i < N ? 1.f / sum : 0.f;  // padded query rows: P = 0
-  __nv_bfloat16* pt = ps[warp];
-#pragma unroll
-  for (int e = 0; e < 32; ++e) pt[row * kPLd + half + e] = __float2bfloat16(sv[e] * inv);
-  __syncwarp();
-
-  // O = P V
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o_acc[kTcHd / 16];
-#pragma unroll
-  for (int j = 0; j < kTcHd / 16; ++j) wmma::fill_fragment(o_acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < kMaxN; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, pt + kk, kPLd);
-#pragma unroll
-    for (int j = 0; j < kTcHd / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, vs + kk * kQkvLd + 16 * j, kQkvLd);
-      wmma::mma_sync(o_acc[j], a, b, o_acc[j]);
+  float m[kMaxN / 8][4];
+  load_mask_bias(m, mb, p, h, N, i0, g, t);
+  if (j0 < j1) load(j0, 0);
+  for (int j = j0; j < j1; ++j) {
+    const int b = (j - j0) & 1;
+    if (j + 1 < j1) {
+      load(j + 1, b ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-  }
+    __syncthreads();
+    if (i0 < N) {
+      float s[kMaxN / 8][4];
+      scores(s, buf[b][0], buf[b][1], i0, lane);
+      softmax_rows(s, m, scale, i0 + g < N, i0 + g + 8 < N);
+      unsigned pa[4][4];
+      to_a_frags(pa, s, 1.f);  // P rounded to bf16 before P V, as the Pallas kernels do
+      float acc[kTcHd / 8][4] = {};
+      times_tile(acc, pa, buf[b][2], lane);
+      __nv_bfloat16* st = ost[warp];
 #pragma unroll
-  for (int j = 0; j < kTcHd / 16; ++j)
-    wmma::store_matrix_sync(st + 16 * j, o_acc[j], kSLd, wmma::mem_row_major);
-  __syncwarp();
-  if (i < N) {  // lanes 2t, 2t+1 write row t's columns 0-15, 16-31
-    const int c0 = (lane & 1) * 16;
-    __nv_bfloat16* orow = o + ((size_t)r * N + i) * ldo + h * kTcHd + c0;
-    *reinterpret_cast<uint4*>(orow) = pack8(st + row * kSLd + c0);
-    *reinterpret_cast<uint4*>(orow + 8) = pack8(st + row * kSLd + c0 + 8);
+      for (int jd = 0; jd < kTcHd / 8; ++jd) {
+        *reinterpret_cast<unsigned*>(st + g * kTcPitch + 8 * jd + 2 * t) =
+            pack_bf16x2(acc[jd][0], acc[jd][1]);
+        *reinterpret_cast<unsigned*>(st + (g + 8) * kTcPitch + 8 * jd + 2 * t) =
+            pack_bf16x2(acc[jd][2], acc[jd][3]);
+      }
+      __syncwarp();
+      const int r = p + j * P;
+      for (int e = lane; e < 16 * 4; e += 32) {  // 16 rows of four 16-byte runs
+        const int row = e >> 2, c = (e & 3) * 8;
+        if (i0 + row < N)
+          *reinterpret_cast<uint4*>(o + ((size_t)r * N + i0 + row) * ldo + h * kTcHd + c) =
+              *reinterpret_cast<const uint4*>(st + row * kTcPitch + c);
+      }
+    }
+    __syncthreads();  // the next load refills this buffer
   }
 }
 
@@ -215,19 +180,26 @@ window_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 extern "C" int mumpy_window_attention(const void* q, const void* k, const void* v,
                                       void* o, const void* mb, int R, int N, int H,
                                       int hd, int q_mod, int ldq, int ldk, int ldv,
-                                      int ldo, int P, float scale, int dtype,
-                                      void* stream) {
+                                      int ldo, int P, int mb_dtype, int mb_s0,
+                                      int mb_s1, int mb_s2, int mb_s3, float scale,
+                                      int dtype, void* stream) {
   using namespace mumpy;
+  if (N <= 0 || N > kMaxN || hd <= 0 || hd > 32 || P <= 0 || R % P)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(mb);
+  const MaskBias m{mb, mb_dtype == kBF16, {mb_s0, mb_s1, mb_s2, mb_s3}};
   const bool tc = dtype == kBF16 && hd == kTcHd && ldq % 8 == 0 && ldk % 8 == 0 &&
                   ldv % 8 == 0 && ldo % 8 == 0 && aligned16(q) && aligned16(k) &&
                   aligned16(v) && aligned16(o);
   if (tc) {
-    window_attention_tc_kernel<<<R * H, kAttnThreads, 0, s>>>(
+    const int per_slot = R / P;
+    const int chunks = max(1, min(per_slot, (kTcBlocks + H * P - 1) / (H * P)));
+    const int wpb = (per_slot + chunks - 1) / chunks;
+    const dim3 grid(H, P, (per_slot + wpb - 1) / wpb);
+    window_attention_tc_kernel<<<grid, kAttnThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), m, N, H,
-        q_mod, ldq, ldk, ldv, ldo, P, scale);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), m, R, N, H,
+        q_mod, ldq, ldk, ldv, ldo, P, wpb, scale);
     return (int)cudaGetLastError();
   }
   const size_t smem = (size_t)(3 * kMaxN * (hd + 1) + (kAttnThreads / 32) * kMaxN) * sizeof(float);

@@ -18,32 +18,17 @@ import torch.nn.functional as F
 
 from . import cuda_lib
 
-__all__ = ["attn_ln", "attn_ln_plain", "attn_ln_operands", "pad_mask_bias",
-           "window_msa_plain"]
-
-KEY_PAD = 64  # key columns of the additive term the attention kernel reads
-
-
-def pad_mask_bias(mask_bias: torch.Tensor) -> torch.Tensor:
-    """(P, H, N, N) additive term -> (P, H, N, 64) f32 whose key-pad columns
-    hold -1e30, so the term doubles as the key-pad mask in the kernel."""
-    p, h, n, _ = mask_bias.shape
-    if n > KEY_PAD:
-        raise ValueError(f"window attention takes n <= {KEY_PAD}, got n={n}")
-    out = torch.full((p, h, n, KEY_PAD), -1e30, dtype=torch.float32,
-                     device=mask_bias.device)
-    out[..., :n] = mask_bias.float()
-    return out
+__all__ = ["attn_ln", "attn_ln_plain", "attn_ln_operands", "window_msa_plain"]
 
 
 def attn_ln_operands(ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj, mask_bias, heads):
-    """Kernel operands: weights stored (in, out), the additive term padded by
-    :func:`pad_mask_bias` (its period P in windows is its leading dim)."""
+    """Kernel operands: weights stored (in, out), the (P, H, N, N) additive
+    term in f32 (its period P in windows is its leading dim)."""
     return {"ln_g": ln_g.detach().contiguous(), "ln_b": ln_b.detach().contiguous(),
             "w_qkv": w_qkv.detach().t().contiguous(), "b_qkv": b_qkv.detach().contiguous(),
             "w_proj": w_proj.detach().t().contiguous(),
             "b_proj": b_proj.detach().contiguous(),
-            "mb": pad_mask_bias(mask_bias.detach()), "heads": heads}
+            "mb": mask_bias.detach().float().contiguous(), "heads": heads}
 
 
 def window_msa_plain(h, ops):
@@ -55,7 +40,7 @@ def window_msa_plain(h, ops):
     qkv = (h @ ops["w_qkv"] + ops["b_qkv"]).reshape(r, n, 3, heads, hd)
     q, k, v = qkv.unbind(2)  # (R, N, H, hd)
     s = torch.einsum("rqhd,rkhd->rhqk", q, k) * hd**-0.5
-    mb = ops["mb"][..., :n]  # (P, H, N, N)
+    mb = ops["mb"]  # (P, H, N, N)
     p = mb.shape[0]
     s = (s.reshape(r // p, p, heads, n, n) + mb).reshape(r, heads, n, n)
     a = torch.softmax(s, dim=-1).to(v.dtype)

@@ -22,21 +22,25 @@ weight-gradient products.  The port keeps that contract:
   and the mask+bias gradient, summed over windows), ``dh1 = dqkv Wqkv^T``,
   and the LayerNorm backward with the residual's ``dout`` added; then the
   weight and bias gradients of qkv and of the projection and the LayerNorm
-  scale and bias gradients (``csrc/wgrad.cu``: row-split sums and their
-  reduction), which the JAX package sums in XLA outside its kernel.  The
-  backward is two steps, :func:`attn_recompute` and :func:`attn_bwd_from`,
-  so that ``swin_block_train`` can recompute once and reuse the second.
+  scale and bias gradients (row-split sums and their reduction,
+  ``csrc/wgrad.cu``), which the JAX package sums in XLA outside its kernel.
+  The backward is two steps, :func:`attn_recompute` and
+  :func:`attn_bwd_from`, so that ``swin_block_train`` can recompute once and
+  reuse the second.  Their products run on ``cuda_lib.train_gemm``: in bf16
+  the wgmma GEMM of ``csrc/gemm_sm90.cu`` (its TN form for the weight
+  gradients); the forward stays on ``csrc/gemm.cu``.
 
 The products with transposed weights read the torch Linear weights as they
 are stored, (out, in): the backward's ``do`` and ``dh1`` GEMMs need exactly
 that layout.  Only the forward's products need (in, out) copies; the
 ``Function`` builds them once per call and keeps them for the backward's
-recompute.  The mask+bias gradient leaves the ``Function`` through the padded
-(P, H, N, 64) term, so autograd carries it through ``pad_mask_bias``'s slice
-and ``rel_pos_bias``'s gather into the relative-position table.
+recompute.  The (P, H, N, N) mask+bias goes to the attention core as it is,
+and its gradient leaves the ``Function`` in its dtype, so autograd carries it
+through ``rel_pos_bias``'s gather into the relative-position table.
 
-On the card the products are bound by their tile loads (bf16 tensor cores)
-or the FMA rate (f32 SIMT), the attention backward by issuing instructions.
+On the card the products are bound by the tensor-core rate (bf16) or the FMA
+rate (f32 SIMT); the bf16 attention backward by bytes, the f32 one by issuing
+instructions.
 """
 
 from __future__ import annotations
@@ -45,7 +49,6 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
-from .attn_ln import pad_mask_bias
 
 __all__ = ["attn_ln_train", "attn_ln_train_plain", "attn_ln_weights"]
 
@@ -77,73 +80,71 @@ def attn_ln_train_plain(x, mb, p, keep):
 
 class _AttnLnTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mbp, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads):
+    def forward(ctx, x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads):
         r, n, c = x.shape
         wq_t, wp_t = w_qkv.t().contiguous(), w_proj.t().contiguous()
         x2 = x.reshape(r * n, c)
-        o = _attention(x2, wq_t, b_qkv, mbp, r, n, heads, ln=(ln_g, ln_b))[1]
+        o = _attention(x2, wq_t, b_qkv, mb, r, n, heads, ln=(ln_g, ln_b))[1]
         y, out = cuda_lib.gemm(o, wp_t, b_proj, res=x2, want_out=True, row_scale=keep,
                                scale_div=n)
-        ctx.save_for_backward(x, mbp, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t)
+        ctx.save_for_backward(x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t)
         ctx.heads = heads
         return y.reshape(r, n, c), out.reshape(r, n, c)
 
     @staticmethod
     def backward(ctx, dy, dout):
         attn_ln_train.backward_launches += 1
-        x, mbp, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t = ctx.saved_tensors
-        grads = launch_attn_ln_train_bwd(x, mbp, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj,
+        x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t = ctx.saved_tensors
+        grads = launch_attn_ln_train_bwd(x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj,
                                          wq_t, ctx.heads, dy, dout)
         return (*grads, None)
 
 
-def _attention(x2, wq_t, b_qkv, mbp, r, n, heads, ln=None):
-    """qkv = (LN(x2) or x2) Wqkv + b, then the attention core: (qkv, o)."""
-    qkv, _ = cuda_lib.gemm(x2, wq_t, b_qkv, ln=ln)
-    return qkv, cuda_lib.packed_window_attention(qkv, mbp, r=r, n=n, heads=heads)
+def _attention(x2, wq_t, b_qkv, mb, r, n, heads, ln=None, gemm=cuda_lib.gemm):
+    """qkv = (LN(x2) or x2) Wqkv + b through ``gemm``, then the attention
+    core: (qkv, o)."""
+    qkv, _ = gemm(x2, wq_t, b_qkv, ln=ln)
+    return qkv, cuda_lib.packed_window_attention(qkv, mb, r=r, n=n, heads=heads)
 
 
-def launch_attn_ln_train_bwd(x, mbp, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t, heads,
+def launch_attn_ln_train_bwd(x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t, heads,
                              dy, dout, rowsum=True):
-    """The backward's launches.  Returns the gradients of (x, mbp, keep, ln_g,
+    """The backward's launches.  Returns the gradients of (x, mb, keep, ln_g,
     ln_b, w_qkv, b_qkv, w_proj, b_proj); ``rowsum=False`` is the planted fault
     of the checks (the softmax backward without its rowsum term)."""
     r, n, c = x.shape
     x2 = x.reshape(r * n, c)
     dy2 = None if dy is None else dy.reshape(r * n, c).contiguous()
     dout2 = (torch.zeros_like(x2) if dout is None else dout).reshape(r * n, c).contiguous()
-    rec = attn_recompute(x2, ln_g, ln_b, wq_t, b_qkv, mbp, r, n, heads)
-    return attn_bwd_from(x2, rec, mbp, keep, ln_g, w_qkv, w_proj, dy2, dout2, rowsum)
+    rec = attn_recompute(x2, ln_g, ln_b, wq_t, b_qkv, mb, r, n, heads)
+    return attn_bwd_from(x2, rec, mb, keep, ln_g, w_qkv, w_proj, dy2, dout2, rowsum)
 
 
-def attn_recompute(x2, ln_g, ln_b, wq_t, b_qkv, mbp, r, n, heads):
+def attn_recompute(x2, ln_g, ln_b, wq_t, b_qkv, mb, r, n, heads):
     """The backward's recompute from the (R*N, C) rows ``x2``: h1 = LN(x2)
     and its f32 row statistics, the packed qkv and the head outputs o."""
     h1, mu, rstd = cuda_lib.ln_rows(x2, ln_g, ln_b)
-    qkv, o = _attention(h1, wq_t, b_qkv, mbp, r, n, heads)
+    qkv, o = _attention(h1, wq_t, b_qkv, mb, r, n, heads, gemm=cuda_lib.train_gemm)
     return h1, mu, rstd, qkv, o
 
 
-def attn_bwd_from(x2, rec, mbp, keep, ln_g, w_qkv, w_proj, dy, dout, rowsum=True):
+def attn_bwd_from(x2, rec, mb, keep, ln_g, w_qkv, w_proj, dy, dout, rowsum=True):
     """The attention half's backward from its recompute ``rec``
     (:func:`attn_recompute`) and the (R*N, C) cotangents of ``y`` (``dy``,
     may be None) and of ``out = x + keep * y`` (``dout``).  Returns the
-    gradients of (x, mbp, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj)."""
+    gradients of (x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj)."""
     h1, mu, rstd, qkv, o = rec
     rows, c = x2.shape
-    heads, n = mbp.shape[1], mbp.shape[2]
+    heads, n = mb.shape[1], mb.shape[2]
     hd = c // heads
     dproj = cuda_lib.scale_add_rows(dy, dout, keep, div=n)
-    do, _ = cuda_lib.gemm(dproj, w_proj)
-    dqkv, dmb = cuda_lib.window_attention_bwd(qkv, do, mbp, r=rows // n, n=n, heads=heads,
+    do, _ = cuda_lib.train_gemm(dproj, w_proj)
+    dqkv, dmb = cuda_lib.window_attention_bwd(qkv, do, mb, r=rows // n, n=n, heads=heads,
                                               hd=hd, scale=hd**-0.5, rowsum=rowsum)
-    dh1, _ = cuda_lib.gemm(dqkv, w_qkv)
+    dh1, _ = cuda_lib.train_gemm(dqkv, w_qkv)
     dx = cuda_lib.ln_bwd_rows(x2, mu, rstd, ln_g, dh1, dres=dout)
-    dmbp = torch.zeros_like(mbp)
-    dmbp[..., :n] = dmb
-    return (dx.reshape(rows // n, n, c), dmbp, None,
-            *cuda_lib.ln_param_grads(x2, mu, rstd, ln_g, dh1),
-            *cuda_lib.weight_grads(dqkv, h1), *cuda_lib.weight_grads(dproj, o))
+    return (dx.reshape(rows // n, n, c), dmb.to(mb.dtype), None,
+            *cuda_lib.grad_sums((x2, mu, rstd, ln_g, dh1), (dqkv, h1), (dproj, o)))
 
 
 def attn_ln_train(x, mb, p, keep):
@@ -159,7 +160,7 @@ def attn_ln_train(x, mb, p, keep):
 
 def launch_attn_ln_train(x, mb, p, keep):
     """The kernel's forward launches, differentiable through its backward's."""
-    return _AttnLnTrain.apply(cuda_lib.aligned(x), pad_mask_bias(mb), keep.float().contiguous(),
+    return _AttnLnTrain.apply(cuda_lib.aligned(x), mb, keep.float().contiguous(),
                               p["ln_g"], p["ln_b"], p["w_qkv"], p["b_qkv"], p["w_proj"],
                               p["b_proj"], p["heads"])
 

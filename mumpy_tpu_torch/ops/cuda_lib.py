@@ -38,13 +38,18 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mumpy_gemm": [_P] * 13 + [_I] * 9 + [_P],
     "mumpy_gemm_tn": [_P] * 5 + [_I] * 5 + [_P],
+    "mumpy_gemm_sm90": [_P] * 9 + [_I] * 7 + [_P],
+    "mumpy_gemm_sm90_tn": [_P] * 5 + [_I] * 4 + [_P],
     "mumpy_col_sums": [_P] * 7 + [_I] * 4 + [_P],
-    "mumpy_reduce_splits": [_P, _I, _I, _P, _I, _P, _I, _P],
-    "mumpy_window_attention": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
+    "mumpy_reduce_splits": [_P, _I, _P, _P, _P],
+    "mumpy_window_attention": [_P] * 5 + [_I] * 15 + [_F, _I, _P],
     "mumpy_cva_sample": [_P] * 4 + [_I] * 7 + [_P],
     "mumpy_vit3_attention": [_P] * 2 + [_I] * 3 + [_F, _I, _P],
-    "mumpy_window_attention_bwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    "mumpy_window_attention_bwd": [_P] * 5 + [_I] * 11 + [_F, _I, _I, _P],
     "mumpy_ln_rows": [_P] * 6 + [_I] * 3 + [_P],
+    "mumpy_swin_block_train_scratch": [_I] * 7,
+    "mumpy_swin_block_train_fwd": [_P] * 2 + [_I] * 5 + [_P] * 5 + [_I] * 6 + [_P],
+    "mumpy_swin_block_train_bwd": [_P] * 3 + [_I] * 5 + [_P] * 7 + [_I] * 9 + [_P],
     "mumpy_ln_bwd_rows": [_P] * 7 + [_I] * 3 + [_P],
     "mumpy_scale_add_rows": [_P] * 4 + [_I] * 4 + [_P],
 }
@@ -103,6 +108,7 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        handle.mumpy_swin_block_train_scratch.restype = ctypes.c_longlong
         handle.mumpy_error_string.argtypes = [ctypes.c_int]
         handle.mumpy_error_string.restype = ctypes.c_char_p
         _lib = handle
@@ -125,19 +131,25 @@ def dtype_code(t: torch.Tensor) -> int:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}") from None
 
 
-def stream_of(t: torch.Tensor):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as the int ctypes passes
+    (``torch.cuda.current_stream(t.device).cuda_stream`` without building a
+    ``Stream`` object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def ptr(t):
-    """Device pointer of a tensor (None -> NULL)."""
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    """Device pointer of a tensor as an int (None -> NULL)."""
+    return None if t is None else t.data_ptr()
 
 
 def require(t: torch.Tensor, name: str, like: torch.Tensor, shape=None,
             dtype=None) -> None:
     """Check that ``t`` is a contiguous tensor on ``like``'s CUDA device with
     the given dtype (default ``like.dtype``) and shape."""
+    if (t.dtype == (like.dtype if dtype is None else dtype) and t.is_contiguous()
+            and (shape is None or t.shape == shape) and t.get_device() == like.get_device()):
+        return  # the launch path: one test, then the reasons below
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, expected {like.device}")
     want = like.dtype if dtype is None else dtype
@@ -230,44 +242,110 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
     return y, out
 
 
+def gemm_sm90(x, w, bias=None, res=None, want_y=True, want_out=False, gelu=False,
+              row_scale=None, scale_div=1, gelu_grad_of=None, gelu_out=None,
+              row_scale_on=True):
+    """Launch the bf16 wgmma GEMM (csrc/gemm_sm90.cu): ``x`` (M, K) @ ``w``
+    (K, N) with :func:`gemm`'s epilogues (bias, GELU, the GELU backward with
+    ``gelu_grad_of`` / ``gelu_out``, ``out = res + y`` or, with ``row_scale``,
+    ``res + row_scale[m // scale_div] * y``) and no prologue or row maps.
+    ``w`` is contiguous or the transpose of a contiguous (N, K) tensor (a
+    torch Linear weight's ``.t()``, read as stored).  ``row_scale_on=False``
+    ignores the row scale: the planted fault of the checks.  Returns ``y``
+    and/or ``out`` as requested."""
+    k = x.shape[-1]
+    m = x.numel() // k
+    n = w.shape[1]
+    require(x, "x", x, dtype=torch.bfloat16)
+    b_kmajor = not w.is_contiguous()
+    require(w.t() if b_kmajor else w, "w", x, shape=(n, k) if b_kmajor else (k, n))
+    if bias is not None:
+        require(bias, "bias", x, shape=(n,))
+    if row_scale is not None:
+        require(row_scale, "row scale", x, shape=(-(-m // scale_div),), dtype=torch.float32)
+    act = ACT_GELU if gelu else ACT_NONE
+    if gelu_grad_of is not None:
+        require(gelu_grad_of, "gelu input", x, shape=(m, n))
+        act = ACT_GELU_GRAD
+    if gelu_out is not None:
+        if gelu_grad_of is None:
+            raise ValueError("gemm_sm90: gelu_out needs gelu_grad_of")
+        require(gelu_out, "gelu output", x, shape=(m, n))
+    out = None
+    if want_out:
+        require(res, "res", x, shape=(m, n))
+        out = torch.empty((m, n), device=x.device, dtype=x.dtype)
+    y = torch.empty((m, n), device=x.device, dtype=x.dtype) if want_y else None
+    vectors = (x, w, bias, res, gelu_grad_of, y, out, gelu_out)  # moved 16 bytes at a time
+    if k % 8 or n % 8 or any(t is not None and t.data_ptr() % 16 for t in vectors):
+        raise ValueError(f"gemm_sm90 takes K and N multiples of 8 and 16-byte aligned "
+                         f"operands; got K={k} N={n}")
+    check(lib().mumpy_gemm_sm90(ptr(x), ptr(w), ptr(bias), ptr(res), ptr(row_scale),
+                                ptr(gelu_grad_of), ptr(y), ptr(out), ptr(gelu_out), m, n, k,
+                                int(b_kmajor), act, scale_div, int(row_scale_on),
+                                stream_of(x)), "gemm_sm90")
+    return y, out
+
+
+def train_gemm(x, w, bias=None, ln=None, row_scale_on=True, **epilogue):
+    """The training kernels' products: bf16 on the wgmma GEMM
+    (:func:`gemm_sm90`, a LayerNorm prologue run first by :func:`ln_rows`),
+    f32 on :func:`gemm`'s SIMT loop.  Arguments as :func:`gemm`'s."""
+    if x.dtype == torch.bfloat16:
+        if ln is not None:
+            x = ln_rows(x, *ln)[0]
+        return gemm_sm90(x, w, bias, row_scale_on=row_scale_on, **epilogue)
+    if not row_scale_on:
+        raise ValueError("the row-scale fault is planted on the bf16 path only")
+    return gemm(x, w, bias, ln=ln, **epilogue)
+
+
+def _mask_period(mb, like, r, n, heads):
+    """Check the (P, H, N, N) f32 or bf16 mask+bias ``mb`` (any strides: the
+    kernels read it through them); return P."""
+    if mb.device != like.device or mb.dtype not in DTYPE_CODES:
+        raise ValueError(f"mask+bias must be a float32 or bfloat16 tensor on {like.device}, "
+                         f"got {mb.dtype} on {mb.device}")
+    if mb.dim() != 4 or mb.shape[1:] != (heads, n, n):
+        raise ValueError(f"mask+bias must be (P, {heads}, {n}, {n}), got {tuple(mb.shape)}")
+    if r % mb.shape[0]:
+        raise ValueError(f"{r} windows are not a multiple of the mask period {mb.shape[0]}")
+    return mb.shape[0]
+
+
 def window_attention(q, k, v, *, r, n, heads, hd, q_mod, ldq, ldk, ldv,
                      q_off=0, k_off=0, v_off=0, mb=None, scale):
     """Launch the window-attention core (csrc/window_attention.cu) over ``r``
     windows of ``n`` tokens.  q/k/v are row-major token matrices with row
-    strides ``ld*``; head 0 starts at column ``*_off``.  Returns o (r*n, heads*hd)."""
+    strides ``ld*``; head 0 starts at column ``*_off``; ``mb`` is the
+    (P, H, N, N) additive term (f32 or bf16, any strides) or None.  Returns o
+    (r*n, heads*hd)."""
     if n > 64 or hd > 32:
         raise ValueError(f"window attention takes n <= 64 and hd <= 32, got n={n} hd={hd}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         require(t, name, q)
-    p = 1
-    if mb is not None:
-        require(mb, "mask+bias", q, dtype=torch.float32)
-        if mb.dim() != 4 or mb.shape[1:] != (heads, n, 64):
-            raise ValueError(f"mask+bias must be (P, {heads}, {n}, 64), got {tuple(mb.shape)}")
-        p = mb.shape[0]
-        if r % p:
-            raise ValueError(f"{r} windows are not a multiple of the mask period {p}")
+    p = 1 if mb is None else _mask_period(mb, q, r, n, heads)
     c = heads * hd
     o = torch.empty((r * n, c), device=q.device, dtype=q.dtype)
     esize = q.element_size()
     check(lib().mumpy_window_attention(
-        ctypes.c_void_p(q.data_ptr() + q_off * esize),
-        ctypes.c_void_p(k.data_ptr() + k_off * esize),
-        ctypes.c_void_p(v.data_ptr() + v_off * esize),
-        ptr(o), ptr(mb), r, n, heads, hd, q_mod, ldq, ldk, ldv, c, p, scale,
+        q.data_ptr() + q_off * esize, k.data_ptr() + k_off * esize,
+        v.data_ptr() + v_off * esize,
+        ptr(o), ptr(mb), r, n, heads, hd, q_mod, ldq, ldk, ldv, c, p,
+        *((0, 0, 0, 0, 0) if mb is None else (dtype_code(mb), *mb.stride())), scale,
         dtype_code(q), stream_of(q)), "window_attention")
     return o
 
 
-def packed_window_attention(qkv, mbp, *, r, n, heads):
+def packed_window_attention(qkv, mb, *, r, n, heads):
     """The window-attention core on the packed (R*N, 3C) rows the qkv GEMM
-    writes (q at column h*hd, k at C + h*hd, v at 2C + h*hd) with the padded
-    (P, H, N, 64) f32 mask+bias ``mbp``.  Returns o (R*N, C)."""
+    writes (q at column h*hd, k at C + h*hd, v at 2C + h*hd) with the
+    (P, H, N, N) mask+bias ``mb``.  Returns o (R*N, C)."""
     c = qkv.shape[-1] // 3
     hd = c // heads
     return window_attention(qkv, qkv, qkv, r=r, n=n, heads=heads, hd=hd, q_mod=r,
                             ldq=3 * c, ldk=3 * c, ldv=3 * c, q_off=0, k_off=c, v_off=2 * c,
-                            mb=mbp, scale=hd**-0.5)
+                            mb=mb, scale=hd**-0.5)
 
 
 def cva_sample(x2, gy, gx, *, b1, n, groups, ws):
@@ -301,27 +379,23 @@ def vit3_attention(qkv, *, heads):
 def window_attention_bwd(qkv, do, mb, *, r, n, heads, hd, scale, rowsum=True):
     """Launch the window-attention backward (csrc/window_attention_bwd.cu) on
     the packed (R*N, 3C) ``qkv`` of the forward, the head-output gradient
-    ``do`` (R*N, C) and the forward's padded (P, H, N, 64) f32 mask+bias.
+    ``do`` (R*N, C) and the forward's (P, H, N, N) mask+bias (f32 or bf16,
+    any strides).
     Returns dqkv (R*N, 3C) and the mask+bias gradient (P, H, N, N) f32."""
     c = heads * hd
     if n > 64 or hd > 32:
         raise ValueError(f"window attention takes n <= 64 and hd <= 32, got n={n} hd={hd}")
     require(qkv, "qkv", qkv, shape=(r * n, 3 * c))
     require(do, "d(head outputs)", qkv, shape=(r * n, c))
-    require(mb, "mask+bias", qkv, dtype=torch.float32)
-    if mb.dim() != 4 or mb.shape[1:] != (heads, n, 64):
-        raise ValueError(f"mask+bias must be (P, {heads}, {n}, 64), got {tuple(mb.shape)}")
-    p = mb.shape[0]
-    if r % p:
-        raise ValueError(f"{r} windows are not a multiple of the mask period {p}")
+    p = _mask_period(mb, qkv, r, n, heads)
     dqkv = torch.empty_like(qkv)
     dmb = torch.zeros((p, heads, n, n), device=qkv.device, dtype=torch.float32)
     # about 8 blocks per SM of an H100 (132 SMs), each summing its windows' dS
     chunks = max(1, min(r // p, -(-1056 // (heads * p))))
     check(lib().mumpy_window_attention_bwd(ptr(qkv), ptr(do), ptr(mb), ptr(dqkv), ptr(dmb),
-                                           r, n, heads, hd, p, chunks, scale, int(rowsum),
-                                           dtype_code(qkv), stream_of(qkv)),
-          "window_attention_bwd")
+                                           r, n, heads, hd, p, dtype_code(mb), *mb.stride(),
+                                           chunks, scale, int(rowsum), dtype_code(qkv),
+                                           stream_of(qkv)), "window_attention_bwd")
     return dqkv, dmb
 
 
@@ -333,8 +407,7 @@ def ln_rows(x, g, b):
     require(g, "ln scale", x, shape=(c,))
     require(b, "ln bias", x, shape=(c,))
     h = torch.empty_like(x)
-    mu = torch.empty(rows, device=x.device, dtype=torch.float32)
-    rstd = torch.empty_like(mu)
+    mu, rstd = torch.empty((2, rows), device=x.device, dtype=torch.float32)
     check(lib().mumpy_ln_rows(ptr(x), ptr(g), ptr(b), ptr(h), ptr(mu), ptr(rstd), rows, c,
                               dtype_code(x), stream_of(x)), "ln_rows")
     return h, mu, rstd
@@ -360,7 +433,9 @@ def ln_bwd_rows(x, mu, rstd, g, dh, dres=None):
 # about two blocks per SM of an H100 (132 SMs): the row splits of the
 # weight-gradient sums aim for this many blocks
 _SPLIT_BLOCKS = 264
-_TN_TILE = {torch.bfloat16: 128, torch.float32: 64}  # dW tile edge (csrc/wgrad.cu)
+_MAX_SUMS = 8  # kMaxSums: workspaces one reduce_splits launch adds (csrc/wgrad.cu)
+# dW tile (rows, columns): csrc/gemm_sm90.cu's TN form (bf16), csrc/wgrad.cu's gemm_tn (f32)
+_TN_TILE = {torch.bfloat16: (64, 128), torch.float32: (64, 64)}
 
 
 def _rows_per_split(rows, blocks):
@@ -369,62 +444,80 @@ def _rows_per_split(rows, blocks):
     return -(-rows // max(1, min(-(-_SPLIT_BLOCKS // blocks), rows // 256)))
 
 
-def _reduce_splits(ws, splits, out1, out2):
-    check(lib().mumpy_reduce_splits(ptr(ws), splits, out1.numel(), ptr(out1), out2.numel(),
-                                    ptr(out2), dtype_code(out1), stream_of(out1)),
-          "reduce_splits")
-
-
-def weight_grads(d, a):
-    """The weight and bias gradients of a Linear layer from its output
-    gradient ``d`` (M, O) and its input ``a`` (M, I), in their dtype with f32
-    accumulation (csrc/wgrad.cu): ``(d^T a, d.sum(0))``, the first in torch
-    Linear's (O, I) layout.  Many rows are split over blocks, and the f32
-    partials summed in split order by a second launch."""
-    rows, o = d.shape
-    i = a.shape[1]
-    require(d, "output gradient", d)
-    require(a, "layer input", d, shape=(rows, i))
-    if d.dtype == torch.bfloat16 and (o % 8 or i % 8):
-        raise ValueError(f"bf16 weight gradients take widths that are multiples of 8, got "
-                         f"{o} and {i}")
-    tile = _TN_TILE[d.dtype]
-    per = _rows_per_split(rows, -(-o // tile) * -(-i // tile))
-    n_splits = -(-rows // per)
-    dw = torch.empty((o, i), device=d.device, dtype=d.dtype)
-    db = torch.empty(o, device=d.device, dtype=d.dtype)
-    ws = None
-    if n_splits > 1:
-        ws = torch.empty((n_splits, o * i + o), device=d.device, dtype=torch.float32)
-    check(lib().mumpy_gemm_tn(ptr(d), ptr(a), ptr(ws), ptr(dw), ptr(db), rows, o, i, per,
-                              dtype_code(d), stream_of(d)), "gemm_tn")
-    if ws is not None:
-        _reduce_splits(ws, n_splits, dw, db)
-    return dw, db
-
-
-def ln_param_grads(x, mu, rstd, g, dh):
-    """The LayerNorm scale and bias gradients, in ``g``'s dtype, from its
-    input ``x``, the f32 row statistics :func:`ln_rows` returns and the
-    output gradient ``dh``: the column sums of dh * xhat and of dh
-    (csrc/wgrad.cu, rows split over blocks as in :func:`weight_grads`)."""
-    rows, c = x.shape
-    require(x, "x", x)
-    require(dh, "dh", x, shape=(rows, c))
-    for t, name in ((mu, "mu"), (rstd, "rstd")):
-        require(t, name, x, shape=(rows,), dtype=torch.float32)
-    require(g, "ln scale", x, shape=(c,))
-    per = _rows_per_split(rows, -(-c // 32))
-    n_splits = -(-rows // per)
-    dg, db = torch.empty_like(g), torch.empty_like(g)
-    ws = None
-    if n_splits > 1:
-        ws = torch.empty((n_splits, 2 * c), device=x.device, dtype=torch.float32)
-    check(lib().mumpy_col_sums(ptr(dh), ptr(x), ptr(mu), ptr(rstd), ptr(ws), ptr(dg), ptr(db),
-                               rows, c, per, dtype_code(x), stream_of(x)), "col_sums")
-    if ws is not None:
-        _reduce_splits(ws, n_splits, dg, db)
-    return dg, db
+def grad_sums(*terms):
+    """Weight, bias and LayerNorm-parameter gradients in their inputs' dtype
+    with f32 accumulation, one pair per term: ``(d, a)``, a Linear layer's
+    output gradient (M, O) and input (M, I), gives ``(d^T a, d.sum(0))``, the
+    first in torch Linear's (O, I) layout (bf16: csrc/gemm_sm90.cu's TN form;
+    f32: csrc/wgrad.cu's gemm_tn); ``(x, mu, rstd, g, dh)``, a LayerNorm's
+    input, the f32 row statistics :func:`ln_rows` returns, its scale and
+    output gradient, gives the column sums of dh * xhat and of dh
+    (csrc/wgrad.cu's col_sums).  Many rows are split over blocks: every
+    split writes f32 partials into one shared workspace, and one launch of
+    reduce_splits adds each term's partials in split order, so the result
+    does not depend on the schedule."""
+    if not 0 < len(terms) <= _MAX_SUMS:
+        raise ValueError(f"grad_sums takes 1 to {_MAX_SUMS} terms, got {len(terms)}")
+    plans, total = [], 0
+    for term in terms:
+        if len(term) == 2:
+            d, a = term
+            rows, o = d.shape
+            i = a.shape[1]
+            require(d, "output gradient", d)
+            require(a, "layer input", d, shape=(rows, i))
+            if d.dtype == torch.bfloat16 and (o % 8 or i % 8):
+                raise ValueError(f"bf16 weight gradients take widths that are multiples of 8, "
+                                 f"got {o} and {i}")
+            to, ti = _TN_TILE[d.dtype]
+            per = _rows_per_split(rows, -(-o // to) * -(-i // ti))
+            outs = (torch.empty((o, i), device=d.device, dtype=d.dtype),
+                    torch.empty(o, device=d.device, dtype=d.dtype))
+        else:
+            x, mu, rstd, g, dh = term
+            rows, c = x.shape
+            require(x, "x", x)
+            require(dh, "dh", x, shape=(rows, c))
+            require(mu, "mu", x, shape=(rows,), dtype=torch.float32)
+            require(rstd, "rstd", x, shape=(rows,), dtype=torch.float32)
+            require(g, "ln scale", x, shape=(c,))
+            per = _rows_per_split(rows, -(-c // 32))
+            outs = (torch.empty_like(g), torch.empty_like(g))
+        splits = -(-rows // per)
+        size = outs[0].numel() + outs[1].numel()
+        plans.append((term, rows, per, splits, size, outs, total))
+        if splits > 1:
+            total += -(-splits * size // 4) * 4  # 16-byte aligned slices
+    first = plans[0][5][0]
+    ws = None if total == 0 else torch.empty(total, device=first.device, dtype=torch.float32)
+    desc, out_ptrs = [], []
+    for term, rows, per, splits, size, (o1, o2), off in plans:
+        wsp = None if splits == 1 else ws.data_ptr() + 4 * off
+        if len(term) == 2:
+            d, a = term
+            if d.dtype == torch.bfloat16:  # the TN form of the wgmma GEMM
+                check(lib().mumpy_gemm_sm90_tn(d.data_ptr(), a.data_ptr(), wsp, o1.data_ptr(),
+                                               o2.data_ptr(), rows, d.shape[1], a.shape[1], per,
+                                               stream_of(d)), "gemm_sm90_tn")
+            else:
+                check(lib().mumpy_gemm_tn(d.data_ptr(), a.data_ptr(), wsp, o1.data_ptr(),
+                                          o2.data_ptr(), rows, d.shape[1], a.shape[1], per,
+                                          dtype_code(d), stream_of(d)), "gemm_tn")
+        else:
+            x, mu, rstd, g, dh = term
+            check(lib().mumpy_col_sums(dh.data_ptr(), x.data_ptr(), mu.data_ptr(),
+                                       rstd.data_ptr(), wsp, o1.data_ptr(), o2.data_ptr(), rows,
+                                       x.shape[1], per, dtype_code(x), stream_of(x)),
+                  "col_sums")
+        if splits > 1:
+            desc += [off, splits, o1.numel(), o2.numel(), dtype_code(o1)]
+            out_ptrs += [o1.data_ptr(), o2.data_ptr()]
+    if desc:
+        check(lib().mumpy_reduce_splits(ws.data_ptr(), len(desc) // 5,
+                                        (ctypes.c_longlong * len(desc))(*desc),
+                                        (ctypes.c_void_p * len(out_ptrs))(*out_ptrs),
+                                        stream_of(first)), "reduce_splits")
+    return [o for plan in plans for o in plan[5]]
 
 
 def scale_add_rows(a, b, s, div=1):
@@ -439,3 +532,77 @@ def scale_add_rows(a, b, s, div=1):
     check(lib().mumpy_scale_add_rows(ptr(a), ptr(b), ptr(s), ptr(out), rows, c, div,
                                      dtype_code(b), stream_of(b)), "scale_add_rows")
     return out
+
+
+_BLOCK_WEIGHTS = 12  # ops/swin_block_train.py:_WEIGHTS
+
+
+def _block_operands(x, mb, keep1, keep2, weights, heads):
+    """Check the bf16 operands of the block's launch sequences; return
+    (R, N, C, hidden, P)."""
+    r, n, c = x.shape
+    require(x, "x", x, dtype=torch.bfloat16)
+    if len(weights) != _BLOCK_WEIGHTS:
+        raise ValueError(f"the block takes {_BLOCK_WEIGHTS} weights, got {len(weights)}")
+    hidden = weights[8].shape[0]
+    shapes = ((c,), (c,), (3 * c, c), (3 * c,), (c, c), (c,), (c,), (c,), (hidden, c),
+              (hidden,), (c, hidden), (c,))
+    for i, (w, shape) in enumerate(zip(weights, shapes)):
+        require(w, f"weight {i}", x, shape=shape)
+    for k, name in ((keep1, "keep1"), (keep2, "keep2")):
+        require(k, name, x, shape=(r,), dtype=torch.float32)
+    if n > 64 or c % heads or c // heads > 32 or c % 8 or hidden % 8:
+        raise ValueError(f"the block's launch sequence takes n <= 64, a head width of at "
+                         f"most 32 and widths that are multiples of 8; got n={n} C={c} "
+                         f"heads={heads} hidden={hidden}")
+    return r, n, c, hidden, _mask_period(mb, x, r, n, heads)
+
+
+def _scratch(x, dims, heads, backward):
+    r, n, c, hidden, p = dims
+    nbytes = lib().mumpy_swin_block_train_scratch(r, n, c, hidden, heads, p, int(backward))
+    return torch.empty(nbytes, device=x.device, dtype=torch.uint8)
+
+
+def swin_block_train_fwd(x, mb, keep1, keep2, weights, heads):
+    """bf16: the whole-block training kernel's forward launches in one call
+    (csrc/swin_block_train.cu).  ``x`` (R, N, C), ``mb`` (P, H, N, N) f32 or
+    bf16 (any strides), ``keep1`` / ``keep2`` (R,) f32 per window,
+    ``weights`` the 12 tensors of ``swin_block_train._WEIGHTS`` as torch
+    stores them.  Returns y (R, N, C)."""
+    dims = _block_operands(x, mb, keep1, keep2, weights, heads)
+    scratch = _scratch(x, dims, heads, backward=False)
+    y = torch.empty_like(x)
+    r, n, c, hidden, p = dims
+    check(lib().mumpy_swin_block_train_fwd(
+        x.data_ptr(), mb.data_ptr(), dtype_code(mb), *mb.stride(), keep1.data_ptr(),
+        keep2.data_ptr(), (ctypes.c_void_p * _BLOCK_WEIGHTS)(*(w.data_ptr() for w in weights)),
+        y.data_ptr(), scratch.data_ptr(), r, n, c, hidden, heads, p, stream_of(x)),
+        "swin_block_train_fwd")
+    return y
+
+
+def swin_block_train_bwd(x, mb, keep1, keep2, weights, heads, dy, rowsum=True,
+                         gelu_grad=True, row_scale=True):
+    """bf16: the whole-block training kernel's backward launches in one call
+    (csrc/swin_block_train.cu), operands as :func:`swin_block_train_fwd`'s
+    and the output gradient ``dy`` (R, N, C).  Returns dx, d(mb) (P, H, N, N)
+    in mb's dtype and the 12 weights' gradients; ``rowsum``, ``gelu_grad``
+    and ``row_scale`` False plant the checks' faults."""
+    dims = _block_operands(x, mb, keep1, keep2, weights, heads)
+    dy = dy.contiguous()
+    require(dy, "dy", x, shape=x.shape)
+    r, n, c, hidden, p = dims
+    scratch = _scratch(x, dims, heads, backward=True)
+    dx = torch.empty_like(x)
+    dmb = torch.empty((p, heads, n, n), device=x.device, dtype=mb.dtype)
+    grads = [torch.empty_like(w) for w in weights]
+    ptrs = ctypes.c_void_p * _BLOCK_WEIGHTS
+    check(lib().mumpy_swin_block_train_bwd(
+        x.data_ptr(), dy.data_ptr(), mb.data_ptr(), dtype_code(mb), *mb.stride(),
+        keep1.data_ptr(), keep2.data_ptr(), ptrs(*(w.data_ptr() for w in weights)),
+        dx.data_ptr(), dmb.data_ptr(), ptrs(*(g.data_ptr() for g in grads)),
+        scratch.data_ptr(), r, n, c, hidden, heads, p, int(rowsum), int(gelu_grad),
+        int(row_scale), stream_of(x)), "swin_block_train_bwd")
+    return (dx, dmb, *grads)
+

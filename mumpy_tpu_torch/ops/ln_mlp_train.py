@@ -18,7 +18,9 @@ the training path.  The port keeps that contract:
   package sums in XLA outside its kernel.  ``gelu(f1)``, which only the fc2
   weight gradient reads, comes from the GELU-backward epilogue, which reads
   f1 anyway.  ``swin_block_train`` runs this backward for its MLP half, with
-  its keep2 per window of ``div`` rows.
+  its keep2 per window of ``div`` rows; its products run on
+  ``cuda_lib.train_gemm`` (in bf16 the wgmma GEMM of ``csrc/gemm_sm90.cu``,
+  its TN form for the weight gradients), the forward on ``csrc/gemm.cu``.
 
 As in ``attn_ln_train``, the transposed products read the torch weights as
 stored; the forward builds (in, out) copies once per call.  Rows need not be a
@@ -76,15 +78,14 @@ def launch_ln_mlp_train_bwd(x, keep, ln_g, ln_b, w1, b1, w2, w1_t, dy, div=1,
     1; gelu(f1) is then not computed and the fc2 weight gradient is zero)."""
     dy = dy.contiguous()
     h, mu, rstd = cuda_lib.ln_rows(x, ln_g, ln_b)
-    f1, _ = cuda_lib.gemm(h, w1_t, b1)
+    f1, _ = cuda_lib.train_gemm(h, w1_t, b1)
     df2 = cuda_lib.scale_add_rows(None, dy, keep, div=div)
     g = torch.empty_like(f1) if gelu_grad else torch.zeros_like(f1)
-    df1, _ = cuda_lib.gemm(df2, w2, gelu_grad_of=f1 if gelu_grad else None,
-                           gelu_out=g if gelu_grad else None)
-    dh, _ = cuda_lib.gemm(df1, w1)
+    df1, _ = cuda_lib.train_gemm(df2, w2, gelu_grad_of=f1 if gelu_grad else None,
+                                 gelu_out=g if gelu_grad else None)
+    dh, _ = cuda_lib.train_gemm(df1, w1)
     dx = cuda_lib.ln_bwd_rows(x, mu, rstd, ln_g, dh, dres=dy)
-    return (dx, None, *cuda_lib.ln_param_grads(x, mu, rstd, ln_g, dh),
-            *cuda_lib.weight_grads(df1, h), *cuda_lib.weight_grads(df2, g))
+    return (dx, None, *cuda_lib.grad_sums((x, mu, rstd, ln_g, dh), (df1, h), (df2, g)))
 
 
 def ln_mlp_train(x, p, keep):

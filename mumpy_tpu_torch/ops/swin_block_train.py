@@ -11,12 +11,11 @@ forward kernel ``_train_fwd_kernel`` and its backward kernels
 from ``x`` and give dx, the score gradients and the weight gradients (spilled
 operands or in-kernel sums).  The port keeps that contract:
 
-* forward, five launches, saving only ``x``, the mask+bias, the keeps and
-  the weights: the LN1 + qkv GEMM, the window-attention core (period-P
-  mask+bias), the projection GEMM whose row-scale epilogue writes
-  ``x2 = x + keep1[r] * proj`` (``csrc/gemm.cu``), the LN2 + fc1 GEMM with
-  the GELU epilogue, and the fc2 GEMM whose epilogue writes
-  ``y = x2 + keep2[r] * f2``;
+* forward, saving only ``x``, the mask+bias, the keeps and the weights: the
+  LN1 + qkv GEMM, the window-attention core (period-P mask+bias), the
+  projection GEMM whose row-scale epilogue writes ``x2 = x + keep1[r] *
+  proj``, the LN2 + fc1 GEMM with the GELU epilogue, and the fc2 GEMM whose
+  epilogue writes ``y = x2 + keep2[r] * f2``;
 * backward, recomputing the attention half once from ``x``: the LN1 rows
   (h1 and the row statistics, ``csrc/train_rows.cu``), the qkv GEMM, the
   attention core (o), the projection GEMM (x2); then ``ln_mlp_train``'s
@@ -27,18 +26,29 @@ operands or in-kernel sums).  The port keeps that contract:
   dx2``, ``do = dproj Wproj^T``, the attention backward, ``dh1 = dqkv
   Wqkv^T``, the LN1 backward with ``dx2`` added: dx).  Each half ends with
   its weight and bias gradients and LayerNorm scale and bias gradients, the
-  row-split sums of ``csrc/wgrad.cu`` that ``_train_bwd_dw_kernel`` keeps in
-  VMEM.
+  row-split sums that ``_train_bwd_dw_kernel`` keeps in VMEM.
 
-The mask+bias gradient leaves the ``Function`` per slot of the period,
-through the padded (P, H, N, 64) term, and autograd carries it through
-``pad_mask_bias``'s slice and ``rel_pos_bias``'s gather into the
-relative-position table; the JAX package returns the row sum in slot 0, and
-the two agree summed over P (the shift mask is a constant).  The shifted
-block's roll and window partition stay outside, as the JAX package runs them
-in XLA around its call.  As in ``attn_ln_train``, the products with
-transposed weights read the torch weights as stored, (out, in); the forward
-builds the (in, out) copies once per call and keeps them for the backward.
+f32 composes these launches here (:func:`forward_sequence`,
+:func:`backward_sequence`, the backward with ``attn_ln_train``'s and
+``ln_mlp_train``'s halves): the SIMT loop of ``csrc/gemm.cu`` with its
+LayerNorm prologue, ``csrc/wgrad.cu``'s sums.  bf16 launches the same
+sequence from one C call each way (``csrc/swin_block_train.cu``; a
+Python-composed sequence of some 30 launches costs more host time than its
+kernels' device time): the wgmma GEMM of ``csrc/gemm_sm90.cu`` with the
+LayerNorms as ``csrc/train_rows.cu``'s row kernel first and its TN form for
+the weight gradients, the tensor-core attention cores.  On the CPU the model
+of that C call runs the composed sequence, so the launch tests hold it.
+
+The mask+bias gradient leaves the ``Function`` per slot of the period, in
+the (P, H, N, N) term's dtype, and autograd carries it through
+``rel_pos_bias``'s gather into the relative-position table; the JAX package
+returns the row sum in slot 0, and the two agree summed over P (the shift
+mask is a constant).  The shifted block's roll and window partition stay
+outside, as the JAX package runs them in XLA around its call.  The input
+gradients' products read the torch weights as stored, (out, in); the
+forward's products take them as (in, out): in bf16 the wgmma GEMM reads the
+weights in place through their transposed views, in f32 the forward builds
+copies once per call and keeps them for the backward's recompute.
 """
 
 from __future__ import annotations
@@ -46,7 +56,6 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .attn_ln import pad_mask_bias
 from .attn_ln_train import _attention, attn_bwd_from, attn_ln_train_plain, attn_recompute
 from .ln_mlp_train import launch_ln_mlp_train_bwd, ln_mlp_train_plain
 
@@ -78,48 +87,89 @@ def swin_block_train_plain(x, mb, p, keep1, keep2):
 
 class _SwinBlockTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mbp, keep1, keep2, *weights_and_heads):
+    def forward(ctx, x, mb, keep1, keep2, *weights_and_heads):
         *weights, heads = weights_and_heads
-        ln1_g, ln1_b, w_qkv, b_qkv, w_proj, b_proj, ln2_g, ln2_b, w1, b1, w2, b2 = weights
-        r, n, c = x.shape
-        wq_t, wp_t, w1_t, w2_t = (w.t().contiguous() for w in (w_qkv, w_proj, w1, w2))
-        x2d = x.reshape(r * n, c)
-        o = _attention(x2d, wq_t, b_qkv, mbp, r, n, heads, ln=(ln1_g, ln1_b))[1]
-        _, x2 = cuda_lib.gemm(o, wp_t, b_proj, res=x2d, want_y=False, want_out=True,
-                              row_scale=keep1, scale_div=n)
-        g, _ = cuda_lib.gemm(x2, w1_t, b1, ln=(ln2_g, ln2_b), gelu=True)
-        _, y = cuda_lib.gemm(g, w2_t, b2, res=x2, want_y=False, want_out=True,
-                             row_scale=keep2, scale_div=n)
-        ctx.save_for_backward(x, mbp, keep1, keep2, *weights, wq_t, wp_t, w1_t)
+        # (in, out) operands of the forward's and the recompute's products: bf16
+        # reads the weights as stored (csrc/swin_block_train.cu), f32 takes
+        # copies once per call and keeps them for the backward
+        if x.dtype == torch.bfloat16:
+            transposed = ()
+            y = cuda_lib.swin_block_train_fwd(x, mb, keep1, keep2, weights, heads)
+        else:
+            transposed = tuple(weights[i].t().contiguous() for i in (2, 4, 8, 10))
+            y = forward_sequence(x, mb, keep1, keep2, weights, transposed, heads)
+        ctx.save_for_backward(x, mb, keep1, keep2, *weights, *transposed[:3])
         ctx.heads = heads
-        return y.reshape(r, n, c)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
         swin_block_train.backward_launches += 1
-        grads = launch_swin_block_train_bwd(*ctx.saved_tensors, ctx.heads, dy)
+        x, mb, keep1, keep2, *rest = ctx.saved_tensors
+        weights, transposed = rest[:12], rest[12:] or (None, None, None)  # f32 only
+        grads = launch_swin_block_train_bwd(x, mb, keep1, keep2, *weights, *transposed,
+                                            ctx.heads, dy)
         return (*grads, None)
 
 
-def launch_swin_block_train_bwd(x, mbp, keep1, keep2, ln1_g, ln1_b, w_qkv, b_qkv, w_proj,
-                                b_proj, ln2_g, ln2_b, w1, b1, w2, b2, wq_t, wp_t, w1_t, heads,
-                                dy, rowsum=True, gelu_grad=True):
-    """The backward's launches.  Returns the gradients of (x, mbp, keep1,
-    keep2, ln1_g, ln1_b, w_qkv, b_qkv, w_proj, b_proj, ln2_g, ln2_b, w1, b1,
-    w2, b2); ``rowsum=False`` and ``gelu_grad=False`` are planted faults of
-    the checks (the softmax backward without its rowsum term, gelu'
-    replaced by 1)."""
+def forward_sequence(x, mb, keep1, keep2, weights, transposed, heads):
+    """The forward's launches, composed here: ``weights`` as in
+    :data:`_WEIGHTS`, ``transposed`` the (in, out) operands of qkv, proj,
+    fc1 and fc2 (copies, or in bf16 the weights' ``.t()`` views).  f32 runs
+    this; bf16 runs the same sequence in one call of
+    ``csrc/swin_block_train.cu`` (this is its model on the CPU)."""
+    ln1_g, ln1_b, _, b_qkv, _, b_proj, ln2_g, ln2_b, _, b1, _, b2 = weights
+    wq_t, wp_t, w1_t, w2_t = transposed
     r, n, c = x.shape
     x2d = x.reshape(r * n, c)
-    rec = attn_recompute(x2d, ln1_g, ln1_b, wq_t, b_qkv, mbp, r, n, heads)
-    _, x2 = cuda_lib.gemm(rec[4], wp_t, b_proj, res=x2d, want_y=False, want_out=True,
-                          row_scale=keep1, scale_div=n)
+    gemm = cuda_lib.train_gemm
+    o = _attention(x2d, wq_t, b_qkv, mb, r, n, heads, ln=(ln1_g, ln1_b), gemm=gemm)[1]
+    _, x2 = gemm(o, wp_t, b_proj, res=x2d, want_y=False, want_out=True, row_scale=keep1,
+                 scale_div=n)
+    g, _ = gemm(x2, w1_t, b1, ln=(ln2_g, ln2_b), gelu=True)
+    _, y = gemm(g, w2_t, b2, res=x2, want_y=False, want_out=True, row_scale=keep2, scale_div=n)
+    return y.reshape(r, n, c)
+
+
+def launch_swin_block_train_bwd(x, mb, keep1, keep2, ln1_g, ln1_b, w_qkv, b_qkv, w_proj,
+                                b_proj, ln2_g, ln2_b, w1, b1, w2, b2, wq_t, wp_t, w1_t, heads,
+                                dy, rowsum=True, gelu_grad=True, row_scale=True):
+    """The backward's launches: in bf16 one call of csrc/swin_block_train.cu
+    (which reads the weights as stored; ``wq_t``, ``wp_t``, ``w1_t`` serve
+    f32), in f32 :func:`backward_sequence`.  Returns the gradients of (x, mb,
+    keep1, keep2, ln1_g, ln1_b, w_qkv, b_qkv, w_proj, b_proj, ln2_g, ln2_b,
+    w1, b1, w2, b2); ``rowsum=False``, ``gelu_grad=False`` and
+    ``row_scale=False`` are planted faults of the checks (the softmax
+    backward without its rowsum term, gelu' replaced by 1, and, in bf16, the
+    recompute's projection GEMM ignoring its row scale keep1)."""
+    weights = (ln1_g, ln1_b, w_qkv, b_qkv, w_proj, b_proj, ln2_g, ln2_b, w1, b1, w2, b2)
+    if x.dtype == torch.bfloat16:
+        dx, dmb, *grads = cuda_lib.swin_block_train_bwd(
+            x, mb, keep1, keep2, weights, heads, dy, rowsum=rowsum, gelu_grad=gelu_grad,
+            row_scale=row_scale)
+        return (dx, dmb, None, None, *grads)
+    return backward_sequence(x, mb, keep1, keep2, *weights, wq_t, wp_t, w1_t, heads, dy,
+                             rowsum, gelu_grad, row_scale)
+
+
+def backward_sequence(x, mb, keep1, keep2, ln1_g, ln1_b, w_qkv, b_qkv, w_proj, b_proj, ln2_g,
+                      ln2_b, w1, b1, w2, b2, wq_t, wp_t, w1_t, heads, dy, rowsum=True,
+                      gelu_grad=True, row_scale=True):
+    """The backward's launches, composed here from the halves #8 shares with
+    ``attn_ln_train`` and ``ln_mlp_train``: f32 runs this; bf16 runs the same
+    sequence in one call of ``csrc/swin_block_train.cu`` (this is its model
+    on the CPU).  Arguments and result as :func:`launch_swin_block_train_bwd`."""
+    r, n, c = x.shape
+    x2d = x.reshape(r * n, c)
+    rec = attn_recompute(x2d, ln1_g, ln1_b, wq_t, b_qkv, mb, r, n, heads)
+    _, x2 = cuda_lib.train_gemm(rec[4], wp_t, b_proj, res=x2d, want_y=False, want_out=True,
+                                row_scale=keep1, scale_div=n, row_scale_on=row_scale)
     dx2, _, *mlp_grads = launch_ln_mlp_train_bwd(x2, keep2, ln2_g, ln2_b, w1, b1, w2, w1_t,
                                                  dy.reshape(r * n, c), div=n,
                                                  gelu_grad=gelu_grad)
-    dx, dmbp, _, *attn_grads = attn_bwd_from(x2d, rec, mbp, keep1, ln1_g, w_qkv, w_proj, None,
-                                             dx2, rowsum)
-    return (dx, dmbp, None, None, *attn_grads, *mlp_grads)
+    dx, dmb, _, *attn_grads = attn_bwd_from(x2d, rec, mb, keep1, ln1_g, w_qkv, w_proj, None,
+                                            dx2, rowsum)
+    return (dx, dmb, None, None, *attn_grads, *mlp_grads)
 
 
 def swin_block_train(x, mb, p, keep1, keep2):
@@ -135,7 +185,7 @@ def swin_block_train(x, mb, p, keep1, keep2):
 
 def launch_swin_block_train(x, mb, p, keep1, keep2):
     """The kernel's forward launches, differentiable through its backward's."""
-    return _SwinBlockTrain.apply(cuda_lib.aligned(x), pad_mask_bias(mb),
+    return _SwinBlockTrain.apply(cuda_lib.aligned(x), mb,
                                  keep1.float().contiguous(), keep2.float().contiguous(),
                                  *(p[k] for k in _WEIGHTS), p["heads"])
 

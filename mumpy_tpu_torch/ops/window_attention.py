@@ -20,20 +20,23 @@ and returns d(qkv) and d(mb) summed over the windows of each period, in
 ``mb``'s dtype.  The JAX package runs that backward in XLA; the port has a
 hand-written core for exactly this function and runs it:
 
-* forward, one launch of ``csrc/window_attention.cu`` (tensor cores for bf16
-  at hd = 32, every flagship head) on the packed rows, with ``mb`` padded to
-  (P, H, N, 64) f32 whose key-pad columns hold -1e30 (the key mask);
+* forward, one launch of ``csrc/window_attention.cu`` on the packed rows and
+  ``mb`` as it is (f32 or bf16, read through its strides; the core masks the
+  keys it pads to 64);
 * backward, one launch of ``csrc/window_attention_bwd.cu``: P recomputed in
   f32, dP = dO V^T, dS = P (dP - rowsum(P dP)), dQ, dK, dV into the packed
-  d(qkv), and dS summed per (period slot, head) into d(mb).  It rounds P to
-  the input dtype before dV = P^T dO and dS * scale before dQ and dK, as the
-  JAX package's training kernels do (``_ad_bwd`` keeps f32 until its cast).
+  d(qkv), and dS summed per (period slot, head) into an f32 d(mb), then cast
+  to ``mb``'s dtype.  It rounds P to the input dtype before dV = P^T dO and
+  dS * scale before dQ and dK, as the JAX package's training kernels do
+  (``_ad_bwd`` keeps f32 until its cast).
 
 At the flagship's N = 49 and hd = 32 both are bound by device-memory bytes,
 not by operations: the forward does about 25 flops per byte it must move in
 bf16, the backward about 28, against the H100's ~295 for its tensor cores.
-The design keeps one (window, head) in shared memory and never writes the
-scores or probabilities to device memory.
+In bf16 (every flagship head is hd = 32) both run on the tensor cores
+(mma.sync) with the scores and probabilities in registers, never in device
+memory; a block takes one head and the windows of one mask slot, so the
+slot's mask+bias is read once per block.
 """
 
 from __future__ import annotations
@@ -41,7 +44,6 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .attn_ln import pad_mask_bias
 
 __all__ = ["window_attention", "window_attention_plain", "launch_window_attention",
            "launch_window_attention_bwd"]
@@ -77,32 +79,31 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, mb, heads):
         r, n, c3 = qkv.shape
-        mbp = pad_mask_bias(mb)
-        o = cuda_lib.packed_window_attention(qkv.reshape(r * n, c3), mbp, r=r, n=n,
+        o = cuda_lib.packed_window_attention(qkv.reshape(r * n, c3), mb, r=r, n=n,
                                              heads=heads)
-        ctx.save_for_backward(qkv, mbp)
-        ctx.heads, ctx.mb_dtype = heads, mb.dtype
+        ctx.save_for_backward(qkv, mb)
+        ctx.heads = heads
         return o.reshape(r, n, c3 // 3)
 
     @staticmethod
     def backward(ctx, do):
         window_attention.backward_launches += 1
-        qkv, mbp = ctx.saved_tensors
-        dqkv, dmb = launch_window_attention_bwd(qkv, mbp, do, ctx.heads)
-        return dqkv, dmb.to(ctx.mb_dtype), None
+        qkv, mb = ctx.saved_tensors
+        dqkv, dmb = launch_window_attention_bwd(qkv, mb, do, ctx.heads)
+        return dqkv, dmb.to(mb.dtype), None
 
 
-def launch_window_attention_bwd(qkv, mbp, do, heads, rowsum=True):
+def launch_window_attention_bwd(qkv, mb, do, heads, rowsum=True):
     """The backward's launch on the forward's packed ``qkv`` (R, N, 3C), its
-    padded (P, H, N, 64) f32 ``mbp`` and the output gradient ``do`` (R, N, C).
-    Returns d(qkv) (R, N, 3C) and d(mb) (P, H, N, N) f32; ``rowsum=False`` is
-    the planted fault of the checks (the softmax backward without its rowsum
+    (P, H, N, N) ``mb`` and the output gradient ``do`` (R, N, C).  Returns
+    d(qkv) (R, N, 3C) and d(mb) (P, H, N, N) f32; ``rowsum=False`` is the
+    planted fault of the checks (the softmax backward without its rowsum
     term)."""
     r, n, c3 = qkv.shape
     c = c3 // 3
     hd = c // heads
     dqkv, dmb = cuda_lib.window_attention_bwd(
-        qkv.reshape(r * n, c3), do.reshape(r * n, c).contiguous(), mbp, r=r, n=n,
+        qkv.reshape(r * n, c3), do.reshape(r * n, c).contiguous(), mb, r=r, n=n,
         heads=heads, hd=hd, scale=hd**-0.5, rowsum=rowsum)
     return dqkv.reshape(r, n, c3), dmb
 

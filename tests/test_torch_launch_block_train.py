@@ -20,7 +20,6 @@ import torch
 
 from mumpy_tpu_torch.ops import cuda_lib
 from mumpy_tpu_torch.ops import swin_block_train as sbt
-from mumpy_tpu_torch.ops.attn_ln import pad_mask_bias
 from mumpy_tpu_torch.ops.window import shifted_window_mask
 from torch_cases import (GRID, WIN, block_train_case, model_lib, rounded,  # noqa: F401
                          run_with_grads)
@@ -55,8 +54,8 @@ def test_planted_faults_move_the_gradients(model_lib):
     w = [p[k] for k in sbt._WEIGHTS]
     transposed = [p[k].t().contiguous() for k in ("w_qkv", "w_proj", "w1")]
 
-    def dx(mbp=pad_mask_bias(mb), k2=keep2, **fault):
-        return sbt.launch_swin_block_train_bwd(x, mbp, keep1, k2, *w, *transposed,
+    def dx(m=mb, k2=keep2, **fault):
+        return sbt.launch_swin_block_train_bwd(x, m, keep1, k2, *w, *transposed,
                                                p["heads"], dy, **fault)[0]
 
     assert rel(dx(), xr.grad) < 1e-5
@@ -65,13 +64,13 @@ def test_planted_faults_move_the_gradients(model_lib):
     assert rel(dx(k2=torch.ones_like(keep2)), xr.grad) > 0.05
     # window 0 holds no wrapped rows, so its slot of the period is the bias alone
     assert not shifted_window_mask(GRID, GRID, WIN, WIN // 2)[0].any()
-    assert rel(dx(mbp=pad_mask_bias(mb[:1].expand_as(mb).contiguous())), xr.grad) > 0.05
+    assert rel(dx(m=mb[:1].expand_as(mb).contiguous()), xr.grad) > 0.05
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_weight_grad_sums_over_row_splits(model_lib, dtype):
-    """The weight, bias and LayerNorm parameter gradients of ``csrc/wgrad.cu``
-    (``cuda_lib.weight_grads`` / ``ln_param_grads``) on 100 rows (one row
+    """The weight, bias and LayerNorm parameter gradients
+    (``cuda_lib.grad_sums`` of a Linear term and a LayerNorm term) on 100 rows (one row
     split) and on 601 (two, the last one ragged), against torch on the same
     (rounded) inputs: f32 within 1e-5, bf16 within 2e-2 of max(1, max|ref|)."""
     g = torch.Generator().manual_seed(67)
@@ -84,7 +83,7 @@ def test_weight_grad_sums_over_row_splits(model_lib, dtype):
         xhat = (xf - xf.mean(1, keepdim=True)) * torch.rsqrt(xf.var(1, unbiased=False,
                                                                    keepdim=True) + 1e-5)
         refs = (df.t() @ af, df.sum(0), (df * xhat).sum(0), df.sum(0))
-        got = (*cuda_lib.weight_grads(d, a), *cuda_lib.ln_param_grads(x, mu, rstd, ln_g, d))
+        got = cuda_lib.grad_sums((d, a), (x, mu, rstd, ln_g, d))
         for gv, r in zip(got, refs):
             assert gv.dtype == dtype
             assert (gv.float() - r).abs().max().item() <= tol * max(1.0, r.abs().max().item())

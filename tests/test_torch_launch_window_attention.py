@@ -18,7 +18,6 @@ import pytest
 import torch
 
 from mumpy_tpu_torch.ops import window_attention as wa
-from mumpy_tpu_torch.ops.attn_ln import pad_mask_bias
 from torch_cases import C, HEADS, Draw, mask_bias, model_lib, t, windows  # noqa: F401
 from torch_cases import one_torch_thread  # noqa: F401  (autouse)
 
@@ -77,9 +76,9 @@ def test_planted_faults_and_inference_mode(model_lib):
         served = wa.launch_window_attention(qkv, mb, HEADS)
         assert rel(wa.launch_window_attention(qkv, torch.zeros_like(mb), HEADS), out) > 0.1
     _close(served, out, torch.float32)
-    bad, bad_dmb = wa.launch_window_attention_bwd(qkv, pad_mask_bias(mb), do, HEADS,
+    bad, bad_dmb = wa.launch_window_attention_bwd(qkv, mb, do, HEADS,
                                                   rowsum=False)
-    good, good_dmb = wa.launch_window_attention_bwd(qkv, pad_mask_bias(mb), do, HEADS)
+    good, good_dmb = wa.launch_window_attention_bwd(qkv, mb, do, HEADS)
     _close(good, dqkv, torch.float32)
     _close(good_dmb, dmb, torch.float32)
     assert rel(bad, dqkv) > 0.1 and rel(bad_dmb, dmb) > 0.1
@@ -99,3 +98,25 @@ def test_wrapper_checks_its_arguments(model_lib):
         wa.launch_window_attention(torch.zeros(1, 4, 198), torch.zeros(1, 1, 4, 4), 1)
     with pytest.raises(TypeError):
         wa.launch_window_attention(qkv.double(), torch.zeros(1, 2, 16, 16), 2)
+
+
+def test_strided_mask_bias(model_lib):
+    """The core reads the (P, H, N, N) mask+bias through its strides: the
+    model's relative-position bias is a permuted view and the shift-mask
+    fault an expanded one; either gives what the same values give
+    contiguous, output and gradients alike."""
+    qkv, mb, do = _case(83, shifted=True)
+    views = {"permuted": lambda m: m.permute(0, 1, 3, 2),
+             "expanded": lambda m: m[:1].expand(mb.shape[0], -1, -1, -1)}
+    for name, view in views.items():
+        outs = []
+        for contiguous in (False, True):
+            q = qkv.clone().requires_grad_()
+            m = mb.clone().requires_grad_()
+            v = view(m)
+            assert v.is_contiguous() == (name == "expanded" and mb.shape[0] == 1)
+            out = wa.launch_window_attention(q, v.contiguous() if contiguous else v, HEADS)
+            out.backward(do)
+            outs.append((out.detach(), q.grad, m.grad))
+        for g, r in zip(*outs):
+            assert torch.equal(g, r), name

@@ -5,6 +5,7 @@ CPU launch tests.  Imports no JAX, so the card-only tests can use it where
 JAX is absent."""
 
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -308,19 +309,42 @@ DTYPES = {0: torch.float32, 1: torch.bfloat16}
 
 
 def _view(p, n, dtype):
-    """The n elements at a ctypes pointer, as a writable tensor."""
+    """The n elements at a pointer (an int, as the wrappers pass it), as a
+    writable tensor."""
     size = n * torch.empty((), dtype=dtype).element_size()
-    return torch.frombuffer((ctypes.c_char * size).from_address(p.value), dtype=dtype)
+    return torch.frombuffer((ctypes.c_char * size).from_address(p), dtype=dtype)
+
+
+def _mask(mb, P, H, N, strides, mb_dtype):
+    """The (P, H, N, N) mask+bias at ``mb`` through its element strides, f32."""
+    extent = 1 + sum((d - 1) * st for d, st in zip((P, H, N, N), strides))
+    return _view(mb, extent, DTYPES[mb_dtype]).as_strided((P, H, N, N), strides).float()
 
 
 class ModelLib:
-    """What csrc/gemm.cu, window_attention.cu, window_attention_bwd.cu,
-    train_rows.cu, wgrad.cu, cva_sample.cu and vit3_attention.cu compute, on
-    the raw buffers the wrappers pass."""
+    """What csrc/gemm.cu, gemm_sm90.cu, window_attention.cu,
+    window_attention_bwd.cu, train_rows.cu, wgrad.cu, cva_sample.cu and
+    vit3_attention.cu compute, on the raw buffers the wrappers pass."""
 
     def mumpy_gemm(self, x, w, bias, g, b, res, a_map, c_map, y, out, row_scale, aux,
                    aux_out, M, N, K, a_sum, a_seg, act, map_len, scale_div, dtype, stream):
-        dt = DTYPES[dtype]
+        s = None if row_scale is None else _view(row_scale, -(-M // scale_div), torch.float32)
+        return self._gemm(x, w, bias, g, b, res, a_map, c_map, y, out, s, aux, aux_out, M, N,
+                          K, a_sum, a_seg, act, map_len, scale_div, DTYPES[dtype])
+
+    def mumpy_gemm_sm90(self, a, b, bias, res, row_scale, aux, y, out, aux_out, M, N, K,
+                        b_kmajor, act, scale_div, row_scale_on, stream):
+        # bf16 only, K and N multiples of 8, 16-byte aligned operands (the wrapper checks)
+        assert K % 8 == 0 and N % 8 == 0
+        assert all(p is None or p % 16 == 0 for p in (a, b, bias, res, aux, y, out, aux_out))
+        s = None if row_scale is None else _view(row_scale, -(-M // scale_div), torch.float32)
+        if s is not None and not row_scale_on:  # the planted fault: the scale ignored
+            s = torch.ones_like(s)
+        return self._gemm(a, b, bias, None, None, res, None, None, y, out, s, aux, aux_out, M,
+                          N, K, 1, 1, act, 0, scale_div, torch.bfloat16, b_kmajor)
+
+    def _gemm(self, x, w, bias, g, b, res, a_map, c_map, y, out, s, aux, aux_out, M, N, K,
+              a_sum, a_seg, act, map_len, scale_div, dt, w_kmajor=False):
         rows = torch.arange(M)
 
         def mapped(mp):  # row m -> (m // L) * L + map[m % L]
@@ -338,7 +362,8 @@ class ModelLib:
             if g is not None:
                 A = F.layer_norm(A, (K,), _view(g, K, dt).float(), _view(b, K, dt).float(),
                                  1e-5).to(dt).float()
-        v = A @ _view(w, K * N, dt).float().reshape(K, N)
+        W = _view(w, K * N, dt).float()
+        v = A @ (W.reshape(N, K).t() if w_kmajor else W.reshape(K, N))
         if bias is not None:
             v = v + _view(bias, N, dt).float()
         c_rows = mapped(c_map)
@@ -355,10 +380,9 @@ class ModelLib:
             _view(y, M * N, dt).reshape(M, N)[c_rows] = yv
         if out is not None:
             resid = _view(res, M * N, dt).reshape(M, N)[c_rows].float()
-            if row_scale is None:
+            if s is None:
                 o = resid + yv.float()
             else:  # res + s * v, rounded once
-                s = _view(row_scale, -(-M // scale_div), torch.float32)
                 o = resid + s[rows // scale_div, None] * v
             _view(out, M * N, dt).reshape(M, N)[c_rows] = o.to(dt)
         return 0
@@ -382,7 +406,15 @@ class ModelLib:
         return 0
 
     def mumpy_gemm_tn(self, a, b, ws, dw, db, M, O, I, rows_per_split, dtype, stream):
-        dt = DTYPES[dtype]
+        assert dtype == 0, "csrc/wgrad.cu's gemm_tn is the f32 form"
+        return self._tn(a, b, ws, dw, db, M, O, I, rows_per_split, torch.float32)
+
+    def mumpy_gemm_sm90_tn(self, a, b, ws, dw, db, rows, M, N, rows_per_split, stream):
+        assert M % 8 == 0 and N % 8 == 0
+        assert all(p is None or p % 16 == 0 for p in (a, b, ws, dw))
+        return self._tn(a, b, ws, dw, db, rows, M, N, rows_per_split, torch.bfloat16)
+
+    def _tn(self, a, b, ws, dw, db, M, O, I, rows_per_split, dt):
         A = _view(a, M * O, dt).reshape(M, O).float()
         B = _view(b, M * I, dt).reshape(M, I).float()
 
@@ -403,22 +435,26 @@ class ModelLib:
 
         return self._splits(rows, rows_per_split, ws, parts, [(dg, C), (db, C)], dt)
 
-    def mumpy_reduce_splits(self, ws, splits, len1, out1, len2, out2, dtype, stream):
-        dt = DTYPES[dtype]
-        total = _view(ws, splits * (len1 + len2), torch.float32).reshape(splits, -1).sum(0)
-        _view(out1, len1, dt).copy_(total[:len1].to(dt))
-        _view(out2, len2, dt).copy_(total[len1:].to(dt))
+    def mumpy_reduce_splits(self, ws, n, desc, outs, stream):
+        for i in range(n):
+            off, splits, len1, len2, dtype = desc[5 * i: 5 * i + 5]
+            dt = DTYPES[dtype]
+            total = _view(ws + 4 * off, splits * (len1 + len2), torch.float32).reshape(
+                splits, -1).sum(0)
+            _view(outs[2 * i], len1, dt).copy_(total[:len1].to(dt))
+            if len2:
+                _view(outs[2 * i + 1], len2, dt).copy_(total[len1:].to(dt))
         return 0
 
-    def mumpy_window_attention_bwd(self, qkv, do, mb, dqkv, dmb, R, N, H, hd, P, chunks,
-                                   scale, rowsum, dtype, stream):
+    def mumpy_window_attention_bwd(self, qkv, do, mb, dqkv, dmb, R, N, H, hd, P, mb_dtype,
+                                   s0, s1, s2, s3, chunks, scale, rowsum, dtype, stream):
         dt = DTYPES[dtype]
         c = H * hd
         q, k, v = _view(qkv, R * N * 3 * c, dt).reshape(R, N, 3, H, hd).float().unbind(2)
         g = _view(do, R * N * c, dt).reshape(R, N, H, hd).float()
         rows = torch.arange(R)
-        s = torch.einsum("rihd,rjhd->rhij", q, k) * scale + _view(
-            mb, P * H * N * 64, torch.float32).reshape(P, H, N, 64)[rows % P][..., :N]
+        s = torch.einsum("rihd,rjhd->rhij", q, k) * scale + _mask(
+            mb, P, H, N, (s0, s1, s2, s3), mb_dtype)[rows % P]
         p = torch.softmax(s, -1)
         dp = torch.einsum("rihd,rjhd->rhij", g, v)
         dsum = (p * dp).sum(-1, keepdim=True) if rowsum else 0.0
@@ -431,6 +467,50 @@ class ModelLib:
         _view(dqkv, R * N * 3 * c, dt).copy_(out.to(dt))
         dm = _view(dmb, P * H * N * N, torch.float32).reshape(P, H, N, N)
         dm += ds.reshape(R // P, P, H, N, N).sum(0)
+        return 0
+
+    # csrc/swin_block_train.cu launches, for bf16, the sequence that
+    # ops/swin_block_train.py composes for f32: the model runs that
+    # composition on the same buffers (through the models above)
+    @staticmethod
+    def _block(x, mb, mb_dtype, strides, keep1, keep2, w, R, N, C, hidden, H, P):
+        from mumpy_tpu_torch.ops import swin_block_train as sbt
+
+        bf = torch.bfloat16
+        shapes = ((C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,), (C,), (C,), (hidden, C),
+                  (hidden,), (C, hidden), (C,))
+        weights = [_view(w[i], math.prod(shape), bf).reshape(shape)
+                   for i, shape in enumerate(shapes)]
+        return (_view(x, R * N * C, bf).reshape(R, N, C),
+                _view(mb, 1 + sum((d - 1) * st for d, st in zip((P, H, N, N), strides)),
+                      DTYPES[mb_dtype]).as_strided((P, H, N, N), strides),
+                _view(keep1, R, torch.float32), _view(keep2, R, torch.float32), weights, sbt)
+
+    def mumpy_swin_block_train_scratch(self, R, N, C, hidden, H, P, backward):
+        return 256
+
+    def mumpy_swin_block_train_fwd(self, x, mb, mb_dtype, s0, s1, s2, s3, keep1, keep2, w, y,
+                                   scratch, R, N, C, hidden, H, P, stream):
+        x, mb, keep1, keep2, weights, sbt = self._block(x, mb, mb_dtype, (s0, s1, s2, s3), keep1,
+                                                        keep2, w, R, N, C, hidden, H, P)
+        transposed = [weights[i].t() for i in (2, 4, 8, 10)]
+        out = sbt.forward_sequence(x, mb, keep1, keep2, weights, transposed, H)
+        _view(y, R * N * C, torch.bfloat16).copy_(out.reshape(-1))
+        return 0
+
+    def mumpy_swin_block_train_bwd(self, x, dy, mb, mb_dtype, s0, s1, s2, s3, keep1, keep2, w,
+                                   dx, dmb, dw, scratch, R, N, C, hidden, H, P, rowsum,
+                                   gelu_grad, row_scale_on, stream):
+        x, mb, keep1, keep2, weights, sbt = self._block(x, mb, mb_dtype, (s0, s1, s2, s3), keep1,
+                                                        keep2, w, R, N, C, hidden, H, P)
+        dyt = _view(dy, R * N * C, torch.bfloat16).reshape(R, N, C)
+        transposed = [weights[i].t() for i in (2, 4, 8)]
+        got = sbt.backward_sequence(x, mb, keep1, keep2, *weights, *transposed, H, dyt,
+                                    bool(rowsum), bool(gelu_grad), bool(row_scale_on))
+        _view(dx, R * N * C, torch.bfloat16).copy_(got[0].reshape(-1))
+        _view(dmb, P * H * N * N, DTYPES[mb_dtype]).copy_(got[1].reshape(-1))
+        for i, g in enumerate(got[4:]):
+            _view(dw[i], g.numel(), torch.bfloat16).copy_(g.reshape(-1))
         return 0
 
     def mumpy_ln_rows(self, x, g, b, h, mu, rstd, rows, C, dtype, stream):
@@ -466,7 +546,7 @@ class ModelLib:
         return 0
 
     def mumpy_window_attention(self, q, k, v, o, mb, R, N, H, hd, q_mod, ldq, ldk, ldv,
-                               ldo, P, scale, dtype, stream):
+                               ldo, P, mb_dtype, s0, s1, s2, s3, scale, dtype, stream):
         dt = DTYPES[dtype]
 
         def heads(p, windows, ld):
@@ -477,8 +557,7 @@ class ModelLib:
         s = torch.einsum("rihd,rjhd->rhij", heads(q, q_mod, ldq)[rows % q_mod],
                          heads(k, R, ldk)) * scale
         if mb is not None:
-            s = s + _view(mb, P * H * N * 64, torch.float32).reshape(P, H, N, 64)[
-                rows % P][..., :N]
+            s = s + _mask(mb, P, H, N, (s0, s1, s2, s3), mb_dtype)[rows % P]
         p = torch.softmax(s, -1).to(dt).float()
         out = torch.einsum("rhij,rjhd->rihd", p, heads(v, R, ldv)).reshape(R * N, H * hd)
         _view(o, R * N * ldo, dt).reshape(R * N, ldo)[:, :H * hd].copy_(out.to(dt))
