@@ -20,9 +20,10 @@ Phases (any failure exits non-zero, before the result line):
    less the residual it adds (f32 1e-5, bf16 2e-2, see ``branch_error``).
    Planted faults run on the bf16 instances and the branch comparison must
    call each wrong: the mask+bias zeroed (every instance that takes one),
-   the pair's row map replaced by the identity (no shift), and vit3's scores
-   zeroed (uniform attention; required on the seeded case, see
-   ``planted_faults``);
+   the pair's row map replaced by the identity (no shift), every LayerNorm of
+   the pair's and the block's bf16 sequence with mean 0 and rstd 1 (the
+   statistics ignored), and vit3's scores zeroed (uniform attention;
+   required on the seeded case, see ``planted_faults``);
 4. the main path: the flagship forward through ``make_serving_forward`` with
    seeded random weights, once on the kernel path and once on the plain path
    (chosen by argument), f32 logits agreeing within 1e-3 * max(1, max|logit|),
@@ -35,7 +36,14 @@ Phases (any failure exits non-zero, before the result line):
 6. each kernel's time per batch-32 bf16 forward beside its plain version's,
    and the least time the card could take for the same work (``bound_ms``:
    the larger of the bytes over 3.35 TB/s and the flops over 989 TFLOP/s,
-   the H100 SXM's HBM rate and dense bf16 tensor-core peak), per instance.
+   the H100 SXM's HBM rate and dense bf16 tensor-core peak), per instance;
+   then the trace (``serving_trace``, ``mlp_train_trace``; alone with
+   ``--trace``): the batch-32 bf16 forward under ``torch.profiler`` (device
+   ms against its untraced ms: the idle share; launches by kernel name), the
+   launches by name of every ``swin_pair`` and ``swin_block`` instance of it
+   and of ``ln_mlp_train``'s forward and backward in one 12-clip step, and
+   the persistent GEMM's time beside ``torch.matmul``'s on each product
+   shape of ``swin_pair`` and ``ln_mlp_train`` (``product_yardstick``).
 
 Training, the flagship at the DVI recipe's 12 clips per step (6 clips x 2
 inpainting streams, SGD) on seeded synthetic clips and masks, with
@@ -157,13 +165,17 @@ LOGIT_TOL = 1e-3
 EXPECTED_LAUNCHES = {"swin_block": 12, "swin_pair": 18, "attn_ln": 12, "ln_mlp": 12,
                      "cva": 8, "vit3": 12}
 KERNEL_INFO = {  # name -> (CUDA sources it launches, TPU kernel it replaces)
-    "swin_block": (["gemm.cu", "window_attention.cu"], "mumpy_tpu/ops/pallas/swin_block.py:180"),
-    "swin_pair": (["gemm.cu", "window_attention.cu"], "mumpy_tpu/ops/pallas/swin_pair.py:191"),
-    "attn_ln": (["gemm.cu", "window_attention.cu"], "mumpy_tpu/ops/pallas/attn_ln.py:51"),
-    "ln_mlp": (["gemm.cu"], "mumpy_tpu/ops/pallas/ln_mlp.py:40"),
-    "cva": (["gemm.cu", "cva_sample.cu", "window_attention.cu"],
+    "swin_block": (["swin_pair.cu", "gemm_sm90.cu", "train_rows.cu", "window_attention.cu"],
+                   "mumpy_tpu/ops/pallas/swin_block.py:180"),
+    "swin_pair": (["swin_pair.cu", "gemm_sm90.cu", "train_rows.cu", "window_attention.cu"],
+                  "mumpy_tpu/ops/pallas/swin_pair.py:191"),
+    "attn_ln": (["gemm_sm90.cu", "train_rows.cu", "window_attention.cu"],
+                "mumpy_tpu/ops/pallas/attn_ln.py:51"),
+    "ln_mlp": (["gemm_sm90.cu", "train_rows.cu"], "mumpy_tpu/ops/pallas/ln_mlp.py:40"),
+    "cva": (["gemm_sm90.cu", "gemm.cu", "cva_sample.cu", "window_attention.cu"],
             "mumpy_tpu/ops/pallas/cva.py:79"),
-    "vit3": (["gemm.cu", "vit3_attention.cu"], "mumpy_tpu/ops/pallas/vit3.py:77"),
+    "vit3": (["gemm_sm90.cu", "train_rows.cu", "vit3_attention.cu"],
+             "mumpy_tpu/ops/pallas/vit3.py:77"),
 }
 RESIDUAL_KERNELS = ("swin_block", "swin_pair", "ln_mlp", "vit3")  # out = x + branch
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16 tensor cores, HBM3
@@ -176,8 +188,8 @@ TRAIN_KERNEL_INFO = {  # name -> (CUDA sources, TPU kernel it replaces)
     "attn_ln_train": (["gemm.cu", "gemm_sm90.cu", "window_attention.cu",
                        "window_attention_bwd.cu", "train_rows.cu", "wgrad.cu"],
                       "mumpy_tpu/ops/pallas/attn_ln_vjp.py:188"),
-    "ln_mlp_train": (["gemm.cu", "gemm_sm90.cu", "train_rows.cu", "wgrad.cu"],
-                     "mumpy_tpu/ops/pallas/ln_mlp_vjp.py:119"),
+    "ln_mlp_train": (["swin_block_train.cu", "gemm_sm90.cu", "train_rows.cu", "wgrad.cu",
+                      "gemm.cu"], "mumpy_tpu/ops/pallas/ln_mlp_vjp.py:119"),
 }
 EXPECTED_TRAIN_LAUNCHES = {"swin_block_train": (48, 48), "attn_ln_train": (12, 12),
                            "ln_mlp_train": (24, 24)}
@@ -258,7 +270,8 @@ def uniform_attention(ops):
 
 def planted_faults(name, ops):
     """(label, operands, whether the flagship forward's own inputs must show
-    it) of every planted fault that applies to an instance.  Uniform
+    it) of every planted fault that applies to an instance (the LayerNorm
+    one on the bf16 sequences of ``swin_pair`` and ``swin_block`` only).  Uniform
     attention is required to show only on the seeded inputs: the random-weight
     flagship's ViT input has three nearly alike time slices (views 1 and 2
     are tiled over time), so its own softmax is nearly uniform already
@@ -268,6 +281,8 @@ def planted_faults(name, ops):
         faults.append(("mask+bias zeroed", drop_mask_bias(ops), True))
     if name == "swin_pair":
         faults.append(("identity row map", identity_map(ops), True))
+    if name in ("swin_pair", "swin_block"):
+        faults.append(("LayerNorm statistics ignored", {**ops, "ln_stats_on": False}, True))
     if name == "vit3":
         faults.append(("scores zeroed", uniform_attention(ops), False))
     return faults
@@ -537,8 +552,8 @@ def train_kernel_run(name, args, cots, fault=None, raw=False):
             x, p, _ = args
             out = lmt.launch_ln_mlp_train(x, p, keep)
             g = lmt.launch_ln_mlp_train_bwd(
-                x, keep, p["ln_g"], p["ln_b"], p["w1"], p["b1"], p["w2"],
-                p["w1"].t().contiguous(), *cots, gelu_grad=fault != "gelu' = 1")
+                x, keep, p["ln_g"], p["ln_b"], p["w1"], p["b1"], p["w2"], None, *cots,
+                gelu_grad=fault != "gelu' = 1")
             names = ("x", None, "ln_g", "ln_b", "w1", "b1", "w2", "b2")
             res = {"out": out}
     if raw:
@@ -1262,6 +1277,126 @@ def launch_breakdown(fn, label, smi):
         log(f"[breakdown]   {ms:9.3f} ms x{n:<5d} {name[:120]}")
 
 
+def serving_trace(model, dev, clip32, smi):
+    """The bf16 batch-32 serving forward of the kernel path under
+    ``torch.profiler``: its device ms against its untraced ms (CUDA events),
+    the device-idle share and the launches; then the launches by kernel name
+    of every #2 (``swin_pair``) and #1 (``swin_block``) instance of that
+    forward, each as often as the forward runs it."""
+    from mumpy_tpu_torch.utils.serving import make_serving_forward
+
+    fwd = make_serving_forward(model, dev, torch.bfloat16, use_kernels=True)
+    x = clip32.to(dev)
+    wall = cuda_ms(lambda: fwd(x), reps=3)
+    kernels = device_kernels(lambda: fwd(x))
+    busy = sum(t for t, _ in kernels.values())
+    log(f"[trace] bf16 batch-32 serving forward, kernel path: device {busy:.3f} ms of the "
+        f"{wall:.3f} ms forward, idle {100 - 100 * busy / wall:.1f}%, "
+        f"{sum(n for _, n in kernels.values())} launches ({smi})")
+    launch_breakdown(lambda: fwd(x), "bf16 batch-32 serving forward", smi)
+    plain = make_serving_forward(model, dev, torch.bfloat16, use_kernels=False)
+    with Capture() as cap:
+        plain(x)
+    from mumpy_tpu_torch.ops import cuda_lib
+
+    for (kname, *_), (args, count) in cap.instances.items():
+        # the yardstick needs the persistent GEMM: an earlier port, traced
+        # for comparison with this script, has none
+        if kname == "swin_pair" and hasattr(cuda_lib, "swin_blocks_fwd"):
+            x, ops = args
+            product_yardstick(f"swin_pair x{count}", x.shape[0] * x.shape[1], x.shape[2],
+                              ops["a"]["mlp"]["w1"].shape[1], smi, row_map=ops["map"])
+    for name in ("swin_pair", "swin_block"):
+        calls = [(getattr(cap.kernels[name], name), args, count)
+                 for (kname, *_), (args, count) in cap.instances.items() if kname == name]
+        with torch.inference_mode():
+            launch_breakdown(lambda: [k(*a) for k, a, n in calls for _ in range(n)],
+                             f"{name}, one bf16 batch-32 forward's instances", smi)
+
+
+def product_yardstick(label, rows, c, hidden, smi, row_map=None, kmajor=False, div=0):
+    """Each product of one block (qkv, proj, fc1, fc2: ``swin_pair``'s, with
+    the shift's ``row_map``) or of #10 (fc1, fc2: ``kmajor`` weights as torch
+    stores them, the keep per ``div`` rows) at ``rows`` x ``c`` (hidden
+    ``hidden``) on seeded bf16 operands: the persistent GEMM with the
+    prologue and epilogue the path gives it (a LayerNorm product's time
+    includes its ``ln_rows`` launch) beside ``torch.matmul`` on the same
+    operands, a yardstick the port never calls."""
+    from mumpy_tpu_torch.ops import cuda_lib
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(*shape, scale=1.0, mean=0.0):
+        return (mean + torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+
+    def weight(k, n):  # (K, N): (in, out) as the serving operands, or a (N, K) weight's view
+        w = rnd(n, k, scale=k ** -0.5)
+        return w.t() if kmajor else w.t().contiguous()
+
+    x, o, h = rnd(rows, c), rnd(rows, c), rnd(rows, hidden)
+    lg, lb = rnd(c, scale=0.1, mean=1.0), rnd(c, scale=0.1)
+    keep = torch.rand(-(-rows // div), generator=g, device="cuda") if div else None
+    wq, wp, w1, w2 = weight(c, 3 * c), weight(c, c), weight(c, hidden), weight(hidden, c)
+    bq, bp, b1, b2 = rnd(3 * c), rnd(c), rnd(hidden), rnd(c)
+    res = {"want_y": False, "want_out": True}
+    prods = {"fc1": (lambda: cuda_lib.gemm_sm90(x, w1, b1, ln=(lg, lb), gelu=True), x, w1),
+             "fc2": (lambda: cuda_lib.gemm_sm90(h, w2, b2, res=x, row_scale=keep,
+                                                scale_div=max(div, 1), **res), h, w2)}
+    if not kmajor:
+        prods = {"qkv": (lambda: cuda_lib.gemm_sm90(x, wq, bq, ln=(lg, lb), a_map=row_map),
+                         x, wq),
+                 "proj": (lambda: cuda_lib.gemm_sm90(o, wp, bp, res=x, c_map=row_map, **res),
+                          o, wp), **prods}
+    out = {}
+    for name, (fn, a, w) in prods.items():
+        ms = cuda_ms(fn, reps=10)
+        mm = cuda_ms(lambda: torch.matmul(a, w), reps=10)
+        flops = 2 * a.shape[0] * a.shape[1] * w.shape[1]
+        out[name] = (ms, mm)
+        log(f"[product] {label} {name} ({a.shape[0]} x {a.shape[1]} @ {w.shape[1]}): GEMM "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * flops / ms / 1e9 / (PEAK_FLOPS / 1e12):.1f}% of peak), torch.matmul "
+            f"{mm:.4f} ms, ratio {ms / mm:.2f} ({smi})")
+    return out
+
+
+def mlp_train_trace(cfg, dev, smi, rng):
+    """The launches by kernel name of #10 (``ln_mlp_train``) in one bf16
+    12-clip step: every instance of a plain-path training forward, forward
+    and backward launched directly, each as often as the step runs it."""
+    from mumpy_tpu_torch.ops import cuda_lib
+    from mumpy_tpu_torch.ops import ln_mlp_train as lmt
+    from mumpy_tpu_torch.utils.serving import set_kernel_path
+
+    b, size = 2 * TRAIN_CLIPS, cfg.image_size
+    clip = torch.from_numpy(rng.standard_normal((b, 3, size, size, 3), dtype=np.float32))
+    model = build_model(cfg, dev).train()
+    set_kernel_path(model, False)
+    with TrainCapture() as cap, torch.no_grad():
+        model(clip.to(dev), generator=torch.Generator(device=dev).manual_seed(SEED))
+    del model
+    calls = []
+    for (name, xshape, _), (args, count) in cap.instances.items():
+        if name != "ln_mlp_train":
+            continue
+        x, p, keep = cast_train_args(name, args, torch.bfloat16)
+        dy = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            xshape, dtype=np.float32)).to(dev, torch.bfloat16)
+        # fc1's (in, out) operand, which the parent's bf16 backward took
+        calls.append((x, p, keep, dy, p["w1"].t().contiguous(), count))
+        if hasattr(cuda_lib, "swin_blocks_fwd"):  # as in serving_trace
+            product_yardstick(f"ln_mlp_train x{count}", x.shape[0], x.shape[1],
+                              p["w1"].shape[0], smi, kmajor=True, div=1)
+    with torch.no_grad():
+        launch_breakdown(lambda: [lmt.launch_ln_mlp_train(x, p, k)
+                                  for x, p, k, _, _, n in calls for _ in range(n)],
+                         "ln_mlp_train, one bf16 step's forward launches", smi)
+        launch_breakdown(lambda: [lmt.launch_ln_mlp_train_bwd(
+            x, k, p["ln_g"], p["ln_b"], p["w1"], p["b1"], p["w2"], w1t, dy)
+            for x, p, k, dy, w1t, n in calls for _ in range(n)],
+            "ln_mlp_train, one bf16 step's backward launches", smi)
+
+
 def train_closure(name, args, cots, kernel):
     """One forward and autograd backward of the kernel's ``Function`` (its
     launches, uncounted) or of the plain version, on ``args`` as they are,
@@ -1393,6 +1528,12 @@ def main() -> int:
     cfg = multiswin_config()
     rng = np.random.default_rng(SEED)
     clip2 = torch.from_numpy(rng.standard_normal((2, 3, 224, 224, 3), dtype=np.float32))
+    if "--trace" in sys.argv[1:]:  # the trace alone: serving, #2 / #1, and #10's step
+        clip32 = torch.from_numpy(rng.standard_normal((32, 3, 224, 224, 3), dtype=np.float32))
+        serving_trace(build_model(cfg, dev), dev, clip32, smi)
+        torch.cuda.empty_cache()
+        mlp_train_trace(cfg, dev, smi, rng)
+        return 0
 
     # ---- 3. every kernel instance vs its plain version ----
     model = build_model(cfg, dev)
@@ -1513,6 +1654,10 @@ def main() -> int:
     for name, (k_ms, p_ms, b_ms, _, _) in times.items():
         log(f"[time] {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
             f"per bf16 batch-32 forward ({smi})")
+    # the serving forward's trace, #2's and #1's launches by name, the
+    # products' yardstick; #10's launches in one step
+    serving_trace(model, dev, clip32, smi)
+    mlp_train_trace(cfg, dev, smi, np.random.default_rng(SEED + 7))
 
     del fwd, cap, model
 

@@ -24,18 +24,19 @@
 // own.
 //
 // Replaces the matrix products inside the Pallas kernels
-// mumpy_tpu/ops/pallas/{ln_mlp,attn_ln,swin_block,swin_pair,cva,vit3}.py,
-// which keep whole weight sets in VMEM.  On Hopper a block owns one output
-// tile and streams K through shared memory; the LayerNorm statistics of the
-// tile's rows are computed in-block before the K loop, so the normalised
-// activations never go to device memory.  bf16 runs on the tensor cores:
-// 128x128 tiles, wmma 16x16x16 with f32 accumulation, 16-byte loads, the next
-// k-tile prefetched into registers; it takes K and N multiples of 8, 16-byte
-// aligned operands and LayerNorm rows of at most 1024 (every flagship GEMM)
-// and refuses other shapes.  f32 runs a 64x64 SIMT loop with fmaf (no TF32).
-// Both are bound by issuing the tile loads and their prologue, not by the
-// tensor-core rate (PERF.md, Findings); cp.async / TMA pipelines and wgmma are
-// later work.
+// mumpy_tpu/ops/pallas/{ln_mlp,attn_ln,swin_block,swin_pair,cva,vit3}.py in
+// f32, and in bf16 the CVA ratio fold alone: every other bf16 product runs on
+// the persistent wgmma GEMM of gemm_sm90.cu (cuda_lib.gemm routes it there),
+// whose loads gather single rows and cannot sum a_sum of them.  A block owns
+// one output tile and streams K through shared memory; the LayerNorm
+// statistics of the tile's rows are computed in-block before the K loop.
+// f32 runs a 64x64 SIMT loop with fmaf (no TF32).  bf16 runs the fold alone
+// (y = sum of rows, times W, plus bias) on the tensor cores: 128x128 tiles,
+// wmma 16x16x16 with f32 accumulation, 16-byte loads, the next k-tile
+// prefetched into registers; it takes K and N multiples of 8 and 16-byte
+// aligned operands and refuses other calls.  The fold's product (the CVA
+// projection, B1 rows) is small beside the rest of the forward, so its loop
+// stays as it is.
 #include <mma.h>
 
 #include "common.cuh"
@@ -169,75 +170,27 @@ __global__ void __launch_bounds__(kSimtThreads) gemm_f32_simt_kernel(GemmArgs p)
     for (int j = 0; j < 4; ++j) epilogue(p, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
 }
 
-// ---- bf16 tensor-core main loop (K and N multiples of 8, 16-byte aligned) ----
+// ---- bf16 tensor-core main loop: the CVA ratio fold ----
 // 128x128 output tile, 8 warps of 64x32 (4x2 wmma 16x16x16 fragments), K in
 // steps of 32.  Every global access moves 8 bf16 (16 bytes); the next k-tile
 // is fetched into registers while the MMAs run on the current one.  Each warp
-// runs its own epilogue through a 16x16 f32 staging tile.
+// runs its own epilogue (bias, y) through a 16x16 f32 staging tile.
 constexpr int kTcBM = 128, kTcBN = 128, kTcBK = 32, kTcThreads = 256;
 constexpr int kLdA = kTcBK + 8, kLdB = kTcBN + 8, kLdS = 16 + 4;  // padded pitches
-constexpr int kTcMaxLnK = 1024;  // LayerNorm rows held in registers: 4 x 8 per lane
 
-// LayerNorm statistics of the tile's rows from one vectorised pass: each
-// lane keeps up to 32 values of its row in registers (K <= kTcMaxLnK).
-__device__ void row_stats_vec(const GemmArgs& p, int m0, float* s_mu, float* s_rs) {
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < kTcBM; r += kTcThreads / 32) {
-    const int m = m0 + r;
-    float mu = 0.f, rs = 0.f;
-    if (m < p.M) {
-      const int src = map_row(p.a_map, p.map_len, m);
-      float v[4][8];
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = (lane + 32 * i) * 8;
-        if (k < p.K) {
-          unpack8(ldg8(x + (size_t)src * p.K + k), v[i]);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) s += v[i][j];
-        }
-      }
-      mu = warp_sum(s) / p.K;
-      float q = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if ((lane + 32 * i) * 8 < p.K) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) q += (v[i][j] - mu) * (v[i][j] - mu);
-        }
-      }
-      rs = rsqrtf(warp_sum(q) / p.K + 1e-5f);
-    }
-    if (lane == 0) { s_mu[r] = mu; s_rs[r] = rs; }
-  }
-}
-
-// 8 consecutive A elements (m, k..k+7) after the prologue; src = a(m).
-__device__ __forceinline__ uint4 a_vec(const GemmArgs& p, int m, int src, int k, int r,
-                                       const float* s_mu, const float* s_rs) {
+// 8 consecutive A elements (m, k..k+7): the sum of the a_sum rows folded
+// into row m
+__device__ __forceinline__ uint4 a_fold(const GemmArgs& p, int m, int k) {
   if (m >= p.M || k >= p.K) return make_uint4(0, 0, 0, 0);
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  if (p.a_sum > 1) {
-    const size_t base = (size_t)(m / p.a_seg) * p.a_sum * p.a_seg + m % p.a_seg;
-    float acc[8] = {}, f[8];
-    for (int t = 0; t < p.a_sum; ++t) {
-      unpack8(ldg8(x + (base + (size_t)t * p.a_seg) * p.K + k), f);
+  const size_t base = (size_t)(m / p.a_seg) * p.a_sum * p.a_seg + m % p.a_seg;
+  float acc[8] = {}, f[8];
+  for (int t = 0; t < p.a_sum; ++t) {
+    unpack8(ldg8(x + (base + (size_t)t * p.a_seg) * p.K + k), f);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] += f[i];
-    }
-    return pack8(acc);
+    for (int i = 0; i < 8; ++i) acc[i] += f[i];
   }
-  const uint4 u = ldg8(x + (size_t)src * p.K + k);
-  if (p.ln_g == nullptr) return u;
-  float f[8], g[8], b[8];
-  unpack8(u, f);
-  unpack8(ldg8(static_cast<const __nv_bfloat16*>(p.ln_g) + k), g);
-  unpack8(ldg8(static_cast<const __nv_bfloat16*>(p.ln_b) + k), b);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) f[i] = (f[i] - s_mu[r]) * s_rs[r] * g[i] + b[i];
-  return pack8(f);
+  return pack8(acc);
 }
 
 __device__ __forceinline__ uint4 b_vec(const GemmArgs& p, int k, int n) {
@@ -245,22 +198,17 @@ __device__ __forceinline__ uint4 b_vec(const GemmArgs& p, int k, int n) {
   return ldg8(static_cast<const __nv_bfloat16*>(p.w) + (size_t)k * p.N + n);
 }
 
-__global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p) {
+__global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_fold_kernel(GemmArgs p) {
   using namespace nvcuda;
   // wmma wants 32-byte aligned fragment origins: the pitches (80, 272 and 80
   // bytes) keep every 16-row / 16-column origin on one
   __shared__ __align__(128) __nv_bfloat16 As[kTcBM * kLdA];
   __shared__ __align__(128) __nv_bfloat16 Bs[kTcBK * kLdB];
   __shared__ __align__(128) float stage[kTcThreads / 32][16 * kLdS];
-  __shared__ float s_mu[kTcBM], s_rs[kTcBM];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;  // warp's 64x32 sub-tile
   const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
-  if (p.ln_g != nullptr) {
-    row_stats_vec(p, m0, s_mu, s_rs);
-    __syncthreads();
-  }
   // this thread's vectors: A rows ra / ra + 64 at column ka; B rows kb / kb + 16 at nb
   const int ra = tid >> 2, ka = (tid & 3) * 8;
   const int kb = tid >> 4, nb = (tid & 15) * 8;
@@ -271,12 +219,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  // source rows of this thread's two A rows, read once (the map is periodic,
-  // so rows past M still index it in bounds; a_vec never loads them)
-  const int sa0 = map_row(p.a_map, p.map_len, m0 + ra);
-  const int sa1 = map_row(p.a_map, p.map_len, m0 + ra + 64);
-  uint4 a0 = a_vec(p, m0 + ra, sa0, ka, ra, s_mu, s_rs);
-  uint4 a1 = a_vec(p, m0 + ra + 64, sa1, ka, ra + 64, s_mu, s_rs);
+  uint4 a0 = a_fold(p, m0 + ra, ka);
+  uint4 a1 = a_fold(p, m0 + ra + 64, ka);
   uint4 b0 = b_vec(p, kb, n0 + nb);
   uint4 b1 = b_vec(p, kb + 16, n0 + nb);
   for (int k0 = 0; k0 < p.K; k0 += kTcBK) {
@@ -287,8 +231,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
     __syncthreads();
     const int k1 = k0 + kTcBK;
     if (k1 < p.K) {  // next k-tile in flight during the MMAs
-      a0 = a_vec(p, m0 + ra, sa0, k1 + ka, ra, s_mu, s_rs);
-      a1 = a_vec(p, m0 + ra + 64, sa1, k1 + ka, ra + 64, s_mu, s_rs);
+      a0 = a_fold(p, m0 + ra, k1 + ka);
+      a1 = a_fold(p, m0 + ra + 64, k1 + ka);
       b0 = b_vec(p, k1 + kb, n0 + nb);
       b1 = b_vec(p, k1 + kb + 16, n0 + nb);
     }
@@ -330,34 +274,8 @@ __global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_tc_kernel(GemmArgs p)
 #pragma unroll
           for (int e = 0; e < 8; ++e) f[e] += t[e];
         }
-        const size_t idx = (size_t)map_row(p.c_map, p.map_len, m) * p.N + n;
-        if (p.act == kActGelu) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] = gelu_erf(f[e]);
-        } else if (p.act == kActGeluGrad) {
-          unpack8(ldg8(static_cast<const __nv_bfloat16*>(p.aux) + idx), t);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] *= gelu_erf_grad(t[e]);
-          if (p.aux_out != nullptr) {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) t[e] = gelu_erf(t[e]);
-            *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.aux_out) + idx) = pack8(t);
-          }
-        }
-        const uint4 yv = pack8(f);
-        if (p.y != nullptr)
-          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.y) + idx) = yv;
-        if (p.out != nullptr) {
-          // without a row scale the branch is rounded to T first, as the
-          // serving kernels do; with one, res + s * v is rounded once
-          float s = 1.f;
-          if (p.row_scale != nullptr) s = p.row_scale[m / p.scale_div];
-          else unpack8(yv, f);
-          unpack8(ldg8(static_cast<const __nv_bfloat16*>(p.res) + idx), t);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] = t[e] + s * f[e];
-          *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.out) + idx) = pack8(f);
-        }
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.y) + (size_t)m * p.N + n) =
+            pack8(f);
       }
       __syncwarp();
     }
@@ -382,14 +300,14 @@ extern "C" int mumpy_gemm(const void* x, const void* w, const void* bias,
   GemmArgs p{x, w, bias, ln_g, ln_b, res, a_map, c_map, y, out, row_scale, aux, aux_out,
              M, N, K, a_sum, a_seg, act, map_len, scale_div};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) {
-    const bool tc = K % 8 == 0 && N % 8 == 0 && (ln_g == nullptr || K <= kTcMaxLnK) &&
-                    aligned16(x) && aligned16(w) && aligned16(bias) && aligned16(ln_g) &&
-                    aligned16(ln_b) && aligned16(res) && aligned16(y) && aligned16(out) &&
-                    aligned16(aux) && aligned16(aux_out);
-    if (!tc) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16) {  // the fold alone: y = (sum of rows) W + bias
+    const bool fold = a_sum > 1 && ln_g == nullptr && res == nullptr && out == nullptr &&
+                      y != nullptr && row_scale == nullptr && act == kActNone &&
+                      K % 8 == 0 && N % 8 == 0 && aligned16(x) && aligned16(w) &&
+                      aligned16(bias) && aligned16(y);
+    if (!fold) return (int)cudaErrorInvalidValue;
     dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
-    gemm_bf16_tc_kernel<<<grid, kTcThreads, 0, s>>>(p);
+    gemm_bf16_fold_kernel<<<grid, kTcThreads, 0, s>>>(p);
   } else {
     dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
     gemm_f32_simt_kernel<<<grid, kSimtThreads, 0, s>>>(p);

@@ -1,20 +1,23 @@
-// bf16 GEMM for Hopper (sm_90a): wgmma.mma_async on operand tiles in shared
-// memory, fed by a ring of cp.async stages.  The products of the training
-// kernels' bf16 path (swin_block_train, and the backward halves it shares
-// with attn_ln_train and ln_mlp_train):
+// bf16 GEMMs for Hopper (sm_90a) on wgmma.mma_async: every bf16 product of
+// the port but the CVA ratio fold (gemm.cu).
 //
-//   mumpy_gemm_sm90, A (M, K) row-major, B (K, N) row-major or, with b_kmajor,
-//   B^T (N, K) row-major (a torch Linear weight as stored):
-//     v = A B + bias
+//   mumpy_gemm_rows, the normal form: x (M, K) row-major, B (K, N) row-major
+//   or, with b_kmajor, B^T (N, K) row-major (a torch Linear weight as stored):
+//     v = x[a(m), :] B + bias
 //     v = gelu_erf(v)                           (act 1)
 //       = v * gelu_erf'(aux[m, n])              (act 2: the GELU backward; with
 //         aux_out, also aux_out[m, n] = T(gelu_erf(aux)), the activation the
 //         fc2 weight gradient reads)
-//     y[m, n]   = T(v)                          (y != null)
-//     out[m, n] = T(res[m, n] + T(v))           (out != null; res required)
-//               = T(res[m, n] + s[m / d] * v)   (with a row scale s, f32, divisor
-//                 d: the stochastic-depth keep; row_scale_on = 0 ignores s, the
-//                 planted fault of the checks)
+//     y[c(m), n]   = T(v)                       (y != null)
+//     out[c(m), n] = T(res[c(m), n] + T(v))     (out != null; res required)
+//                  = T(res[c(m), n] + s[m / d] * v)   (with a row scale s, f32,
+//                    divisor d: the stochastic-depth keep; row_scale_on = 0
+//                    ignores s, the planted fault of the checks)
+//     a(m) and c(m) are gemm.cu's row maps of period L (map_len): (m / L) * L
+//     + map[m % L], m itself without a map.  They gather the shifted Swin
+//     block's rows into its qkv product and scatter its projection (and read
+//     its residual) back, so the cyclic shift moves no bytes of its own.
+//   mumpy_gemm_sm90, the same without the maps (the training kernels' ABI).
 //   mumpy_gemm_sm90_tn, A (K, M) and B (K, N) row-major, the sum over the K rows:
 //     dW[m, n] = sum_k A[k, m] B[k, n],  db[m] = sum_k A[k, m]
 //     (A a layer's output gradient, B its input: dW in torch Linear's (out,
@@ -23,47 +26,32 @@
 //     wgrad.cu's reduce_splits adds in split order, so the result does not
 //     depend on the schedule; with one split the kernel writes T directly.
 //
-// Replaces the matrix products inside mumpy_tpu/ops/pallas/swin_block_vjp.py
-// (_train_fwd_kernel, _train_bwd_kernel, _train_bwd_dw_kernel), which keep
-// whole weight sets in VMEM, and the weight-gradient sums of
-// attn_ln_vjp.py / ln_mlp_vjp.py that the JAX package leaves to XLA.  At the
-// flagship's widths (C 96-1024, hidden 4C) and rows (588 to 112,896 per
-// call) the products with K = C are bound by bytes at the large row counts
-// and the others by the tensor cores' rate.  A block owns a 64 x 128 (one
-// consumer warpgroup) or 128 x 128 (two) output tile: wgmma m64n128k16 with
-// f32 accumulators in registers, K in steps of 64 through a ring of
-// shared-memory stages that every thread fills with 16-byte cp.async copies
-// one or two steps ahead of the products, each stage laid out in the 128-byte
-// swizzle wgmma reads: A K-major (the normal form) or M-major (the TN form),
-// B N-major or K-major (b_kmajor), so neither a weight nor an activation is
-// ever transposed in memory.  The epilogue stages the accumulators through
-// shared memory and applies bias, activation and residual on rows of 8
-// columns with 16-byte loads and stores, as gemm.cu's tensor-core loop does.
-// Edges (M, N, K and the split's rows) are zero-filled by the copies and
-// masked in the epilogue.  It takes bf16 with N, K (normal form) or M, N (TN
-// form) multiples of 8 and 16-byte aligned operands, and refuses others.
+// Replaces the matrix products inside the Pallas kernels
+// mumpy_tpu/ops/pallas/{swin_block,swin_pair,attn_ln,ln_mlp,vit3,
+// ln_mlp_vjp,attn_ln_vjp,swin_block_vjp}.py, which keep whole weight sets in
+// VMEM, and the weight-gradient sums the JAX package leaves to XLA.  The
+// products run C = 96-1024 (K = C or 4C) over 588 to 112,896 rows; those of
+// 6k rows and more are bound by the tensor cores' rate.  The normal form is
+// persistent and warp-specialised (below): one block per SM, a producer
+// warpgroup (B by TMA; A by TMA, or by cp.async through a row map; both in
+// the 128-byte swizzle wgmma reads, completion on mbarriers) and two
+// consumer warpgroups of wgmma m64n128k16, with setmaxnreg moving registers
+// from the producer to them.  A LayerNorm before a product is one
+// row pass of train_rows.cu (ln_rows) that writes the normalised rows once;
+// the product gathers them through its map (normalising the landed A tiles
+// in shared memory instead cost more: PERF.md, Findings).  Edges (M, N, K and
+// the split's rows) are zero-filled by the copies and masked in the
+// epilogue.  Each form takes bf16 with N, K (normal form) or M, N (TN form)
+// multiples of 8 and 16-byte aligned operands, and refuses others.
+#include <cuda.h>  // CUtensorMap and its encoder's types (found through the runtime)
+
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace mumpy {
 
-constexpr int kBN = 128, kBK = 64;
-
-// Stages of the ring: three for 128-row tiles, so that two blocks (96 KB of
-// ring each, at most 128 registers a thread) share an SM and one's prologue
-// and epilogue overlap the other's products; four for 64-row tiles, which
-// fit two to an SM with four.
-template <int kWg> __host__ __device__ constexpr int stages() { return kWg == 2 ? 3 : 4; }
 constexpr int kPanel = 64 * 128;  // one 64-row x 128-byte swizzle panel, bytes
-constexpr int kStageB = kBK * kBN * 2;
-constexpr int kStgPitch = kBN + 4;  // f32 epilogue staging pitch
-
-struct Sm90Args {
-  const __nv_bfloat16* a; const __nv_bfloat16* b; const __nv_bfloat16* bias;
-  const __nv_bfloat16* res; const float* row_scale; const __nv_bfloat16* aux;
-  __nv_bfloat16* y; __nv_bfloat16* out; __nv_bfloat16* aux_out;
-  float* ws; __nv_bfloat16* dw; __nv_bfloat16* db;
-  int M, N, K, act, scale_div, row_scale_on, rows_per_split;
-};
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -127,64 +115,55 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "n"(kTransA), "r"(1), "n"(kTransB));
 }
 
-// One k-step of 64 into stage memory sa (A) / sb (B), 16-byte chunk c of
-// row r of a panel at r * 128 + ((c ^ (r % 8)) * 16): the 128-byte swizzle.
-template <bool kTn, int kWg, bool kKB>
-__device__ __forceinline__ void load_stage(const Sm90Args& p, unsigned char* sa,
-                                           unsigned char* sb, int m0, int n0, int k0,
-                                           int k_end) {
-  constexpr int kBM = 64 * kWg, kThreads = 128 * kWg;
+// ---- the TN form (the weight gradients): one 64 x 128 tile of dW a block ----
+//
+// A (K, M) M-major and B (K, N) N-major, 64 K rows a step through a ring of
+// four stages that every thread fills with 16-byte cp.async copies two steps
+// ahead of the products; one consumer warpgroup, two blocks to an SM.
+constexpr int kTnBM = 64, kTnBN = 128, kTnBK = 64, kTnStages = 4;
+constexpr int kTnStageA = kTnBM * 128, kTnStage = kTnStageA + kTnBK * kTnBN * 2;
+constexpr int kStgPitch = kTnBN + 4;  // f32 epilogue staging pitch
+
+struct TnArgs {
+  const __nv_bfloat16* a; const __nv_bfloat16* b;
+  float* ws; __nv_bfloat16* dw; __nv_bfloat16* db;
+  int M, N, K, rows_per_split;
+};
+
+// One k-step of 64 rows into stage memory sa (A) / sb (B): M-major A and
+// N-major B in panels of 64 columns, 16-byte chunk c of row r of a panel at
+// r * 128 + ((c ^ (r % 8)) * 16), the 128-byte swizzle.
+__device__ __forceinline__ void load_tn_stage(const TnArgs& p, unsigned char* sa,
+                                              unsigned char* sb, int m0, int n0, int k0,
+                                              int k_end) {
   const int tid = threadIdx.x;
-  if (!kTn) {  // A (M, K): kBM rows of 8 chunks, K-major
-    for (int e = tid; e < kBM * 8; e += kThreads) {
-      const int r = e >> 3, c = e & 7, m = m0 + r, k = k0 + c * 8;
-      const bool ok = m < p.M && k < k_end;
-      cp_async16(sa + r * 128 + ((c ^ (r & 7)) << 4), p.a + (ok ? (size_t)m * p.K + k : 0), ok);
-    }
-  } else {  // A (K, M): 64 rows of kBM / 8 chunks, M-major, panels of 64 columns
-    for (int e = tid; e < 64 * (kBM / 8); e += kThreads) {
-      const int r = e / (kBM / 8), cc = e % (kBM / 8), c = cc & 7;
-      const int k = k0 + r, m = m0 + cc * 8;
-      const bool ok = k < k_end && m < p.M;
-      cp_async16(sa + (cc >> 3) * kPanel + r * 128 + ((c ^ (r & 7)) << 4),
-                 p.a + (ok ? (size_t)k * p.M + m : 0), ok);
-    }
+  for (int e = tid; e < kTnBK * (kTnBM / 8); e += 128) {
+    const int r = e / (kTnBM / 8), cc = e % (kTnBM / 8), c = cc & 7;
+    const int k = k0 + r, m = m0 + cc * 8;
+    const bool ok = k < k_end && m < p.M;
+    cp_async16(sa + (cc >> 3) * kPanel + r * 128 + ((c ^ (r & 7)) << 4),
+               p.a + (ok ? (size_t)k * p.M + m : 0), ok);
   }
-  if (kKB) {  // B^T (N, K): kBN rows of 8 chunks, K-major
-    for (int e = tid; e < kBN * 8; e += kThreads) {
-      const int r = e >> 3, c = e & 7, n = n0 + r, k = k0 + c * 8;
-      const bool ok = n < p.N && k < k_end;
-      cp_async16(sb + r * 128 + ((c ^ (r & 7)) << 4), p.b + (ok ? (size_t)n * p.K + k : 0), ok);
-    }
-  } else {  // B (K, N): 64 rows of 16 chunks, N-major, panels of 64 columns
-    for (int e = tid; e < kBK * (kBN / 8); e += kThreads) {
-      const int r = e >> 4, cc = e & 15, c = cc & 7;
-      const int k = k0 + r, n = n0 + cc * 8;
-      const bool ok = k < k_end && n < p.N;
-      cp_async16(sb + (cc >> 3) * kPanel + r * 128 + ((c ^ (r & 7)) << 4),
-                 p.b + (ok ? (size_t)k * p.N + n : 0), ok);
-    }
+  for (int e = tid; e < kTnBK * (kTnBN / 8); e += 128) {
+    const int r = e >> 4, cc = e & 15, c = cc & 7;
+    const int k = k0 + r, n = n0 + cc * 8;
+    const bool ok = k < k_end && n < p.N;
+    cp_async16(sb + (cc >> 3) * kPanel + r * 128 + ((c ^ (r & 7)) << 4),
+               p.b + (ok ? (size_t)k * p.N + n : 0), ok);
   }
 }
 
-template <bool kTn, int kWg, bool kKB>
-__global__ void __launch_bounds__(128 * kWg, kWg == 2 ? 2 : 1)
-    gemm_sm90_kernel(Sm90Args p) {
-  constexpr int kBM = 64 * kWg, kThreads = 128 * kWg, kStages = stages<kWg>();
-  constexpr int kStageA = kBM * 128, kStage = kStageA + kStageB;
+__global__ void __launch_bounds__(128, 1) gemm_tn_kernel(TnArgs p) {
   extern __shared__ unsigned char smem_raw[];
   // the swizzle repeats every 1024 bytes: stages start on such a boundary
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
 
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  int k_begin = 0, k_end = p.K;
-  if (kTn) {
-    k_begin = blockIdx.z * p.rows_per_split;
-    k_end = min(p.K, k_begin + p.rows_per_split);
-  }
-  const int steps = (k_end - k_begin + kBK - 1) / kBK;
-  const bool sums = kTn && blockIdx.x == 0 && tid < kBM;  // db: the first column of tiles
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * kTnBM, n0 = blockIdx.x * kTnBN;
+  const int k_begin = blockIdx.z * p.rows_per_split;
+  const int k_end = min(p.K, k_begin + p.rows_per_split);
+  const int steps = (k_end - k_begin + kTnBK - 1) / kTnBK;
+  const bool sums = blockIdx.x == 0 && tid < kTnBM;  // db: the first column of tiles
   float csum = 0.f;
 
   float d[64];
@@ -192,40 +171,35 @@ __global__ void __launch_bounds__(128 * kWg, kWg == 2 ? 2 : 1)
   for (int i = 0; i < 64; ++i) d[i] = 0.f;
   fence_acc(d);
 
-  for (int s = 0; s < kStages - 2; ++s) {
+  for (int s = 0; s < kTnStages - 2; ++s) {
     if (s < steps)
-      load_stage<kTn, kWg, kKB>(p, smem + s * kStage, smem + s * kStage + kStageA, m0, n0,
-                                k_begin + s * kBK, k_end);
+      load_tn_stage(p, smem + s * kTnStage, smem + s * kTnStage + kTnStageA, m0, n0,
+                    k_begin + s * kTnBK, k_end);
     cp_async_commit();
   }
   for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kStages - 3>();  // this thread's copies of this step have landed
-    fence_proxy_async();           // ... and are visible to the tensor cores
-    __syncthreads();  // everyone's have; every warpgroup is done with step - 2's stage
-    const int next = step + kStages - 2;
+    cp_async_wait<kTnStages - 3>();  // this thread's copies of this step have landed
+    fence_proxy_async();             // ... and are visible to the tensor cores
+    __syncthreads();  // everyone's have; the products of step - 2 are done with its stage
+    const int next = step + kTnStages - 2;
     if (next < steps)
-      load_stage<kTn, kWg, kKB>(p, smem + (next % kStages) * kStage,
-                                smem + (next % kStages) * kStage + kStageA, m0, n0,
-                                k_begin + next * kBK, k_end);
+      load_tn_stage(p, smem + (next % kTnStages) * kTnStage,
+                    smem + (next % kTnStages) * kTnStage + kTnStageA, m0, n0,
+                    k_begin + next * kTnBK, k_end);
     cp_async_commit();
-    unsigned char* sa = smem + (step % kStages) * kStage;
-    const unsigned a0 = smem_u32(sa) + wg * kPanel;  // this warpgroup's 64 rows of A
-    const unsigned b0 = smem_u32(sa + kStageA);
+    unsigned char* sa = smem + (step % kTnStages) * kTnStage;
+    const unsigned a0 = smem_u32(sa), b0 = smem_u32(sa + kTnStageA);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t da = kTn ? smem_desc(a0 + kk * 2048, kPanel, 1024)
-                              : smem_desc(a0 + kk * 32, 16, 1024);
-      const uint64_t db = kKB ? smem_desc(b0 + kk * 32, 16, 1024)
-                              : smem_desc(b0 + kk * 2048, kPanel, 1024);
-      wgmma_m64n128k16<kTn ? 1 : 0, kKB ? 0 : 1>(d, da, db);
-    }
+    for (int kk = 0; kk < kTnBK / 16; ++kk)
+      wgmma_m64n128k16<1, 1>(d, smem_desc(a0 + kk * 2048, kPanel, 1024),
+                             smem_desc(b0 + kk * 2048, kPanel, 1024));
     wgmma_commit();
     if (sums) {  // column tid of this step's A rows, read while the products run
       const unsigned char* col = sa + (tid >> 6) * kPanel + (tid & 7) * 2;
       const int c = (tid & 63) >> 3;
 #pragma unroll 8
-      for (int r = 0; r < kBK; ++r)
+      for (int r = 0; r < kTnBK; ++r)
         csum += __bfloat162float(
             *reinterpret_cast<const __nv_bfloat16*>(col + r * 128 + ((c ^ (r & 7)) << 4)));
     }
@@ -239,9 +213,9 @@ __global__ void __launch_bounds__(128 * kWg, kWg == 2 ? 2 : 1)
 
   float* stg = reinterpret_cast<float*>(smem);
   {
-    const int lane = tid & 31, row = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    const int lane = tid & 31, row = (tid >> 5) * 16 + (lane >> 2);
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
+    for (int j = 0; j < kTnBN / 8; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
       *reinterpret_cast<float2*>(stg + row * kStgPitch + col) = make_float2(d[4 * j], d[4 * j + 1]);
       *reinterpret_cast<float2*>(stg + (row + 8) * kStgPitch + col) =
@@ -249,57 +223,20 @@ __global__ void __launch_bounds__(128 * kWg, kWg == 2 ? 2 : 1)
     }
   }
   __syncthreads();
-  for (int e = tid; e < kBM * (kBN / 8); e += kThreads) {
+  for (int e = tid; e < kTnBM * (kTnBN / 8); e += 128) {
     const int r = e >> 4, c = (e & 15) * 8, m = m0 + r, n = n0 + c;
     if (m >= p.M || n >= p.N) continue;
-    float f[8], t[8];
+    float f[8];
     *reinterpret_cast<float4*>(f) = *reinterpret_cast<const float4*>(stg + r * kStgPitch + c);
     *reinterpret_cast<float4*>(f + 4) =
         *reinterpret_cast<const float4*>(stg + r * kStgPitch + c + 4);
     const size_t idx = (size_t)m * p.N + n;
-    if (kTn) {
-      if (p.ws != nullptr) {
-        float* w = p.ws + (size_t)blockIdx.z * ((size_t)p.M * p.N + p.M) + idx;
-        *reinterpret_cast<float4*>(w) = *reinterpret_cast<float4*>(f);
-        *reinterpret_cast<float4*>(w + 4) = *reinterpret_cast<float4*>(f + 4);
-      } else {
-        *reinterpret_cast<uint4*>(p.dw + idx) = pack8(f);
-      }
-      continue;
-    }
-    if (p.bias != nullptr) {
-      unpack8(ldg8(p.bias + n), t);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] += t[i];
-    }
-    if (p.act == kActGelu) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = gelu_erf(f[i]);
-    } else if (p.act == kActGeluGrad) {
-      unpack8(ldg8(p.aux + idx), t);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] *= gelu_erf_grad(t[i]);
-      if (p.aux_out != nullptr) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) t[i] = gelu_erf(t[i]);
-        *reinterpret_cast<uint4*>(p.aux_out + idx) = pack8(t);
-      }
-    }
-    const uint4 yv = pack8(f);
-    if (p.y != nullptr) *reinterpret_cast<uint4*>(p.y + idx) = yv;
-    if (p.out != nullptr) {
-      // without a row scale the branch is rounded to T first, as the serving
-      // kernels do; with one, res + s * v is rounded once
-      float s = 1.f;
-      if (p.row_scale != nullptr) {
-        if (p.row_scale_on) s = p.row_scale[m / p.scale_div];
-      } else {
-        unpack8(yv, f);
-      }
-      unpack8(ldg8(p.res + idx), t);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) f[i] = t[i] + s * f[i];
-      *reinterpret_cast<uint4*>(p.out + idx) = pack8(f);
+    if (p.ws != nullptr) {
+      float* w = p.ws + (size_t)blockIdx.z * ((size_t)p.M * p.N + p.M) + idx;
+      *reinterpret_cast<float4*>(w) = *reinterpret_cast<float4*>(f);
+      *reinterpret_cast<float4*>(w + 4) = *reinterpret_cast<float4*>(f + 4);
+    } else {
+      *reinterpret_cast<uint4*>(p.dw + idx) = pack8(f);
     }
   }
   if (sums && m0 + tid < p.M) {
@@ -310,53 +247,357 @@ __global__ void __launch_bounds__(128 * kWg, kWg == 2 ? 2 : 1)
   }
 }
 
-template <bool kTn, int kWg, bool kKB>
-int launch_sm90(const Sm90Args& p, int splits, cudaStream_t s) {
-  constexpr int kBM = 64 * kWg, kStages = stages<kWg>();
-  constexpr size_t smem = (size_t)kStages * (kBM * 128 + kStageB) + 1024;
-  static_assert(kBM * kStgPitch * sizeof(float) <= kStages * (kBM * 128 + kStageB),
-                "the epilogue staging fits in the ring");
+// ---- the persistent, warp-specialised GEMM (the normal form) ----
+//
+// One block per SM walks the 128 x 128 output tiles, column tiles fastest, so
+// a row panel of A is read from device memory once and reused from L2 across
+// its column tiles.  Warpgroup 0 is the producer: its thread 0 loads B's K
+// step by TMA (128-byte swizzle, the mbarrier's transaction count) and, with
+// no row map, A's the same way; with a row map a(m) all 128 threads gather
+// A's rows by cp.async into the same swizzle and cp.async.mbarrier.arrive.noinc
+// reports them to the stage's full barrier.  Warpgroups 1 and 2 are the
+// consumers, 64 rows of the tile each: each runs wgmma on the landed stage
+// and releases it to the producer through its empty barrier once the
+// products that read it are done.  The epilogue runs per warp, 8 rows at a
+// time through the warp's own slice of shared memory, with 16-byte stores
+// and no block barrier, while the producer fills the ring (six stages) with
+// the next tile's steps.  64- and 256-wide column tiles, an epilogue of
+// 4-byte stores straight from the accumulators, and the two consumers taking
+// whole tiles in turns were measured against this design and were not
+// faster (PERF.md, Findings).
+constexpr int kPBM = 128, kPBN = 128, kPThreads = 384, kPStages = 6;
+constexpr int kPStageA = kPBM * 128, kPStage = kPStageA + kPBN * 128;
+constexpr int kStgBytes = 8 * 8 * kStgPitch * 4;  // 8 rows of f32 staging per consumer warp
+constexpr size_t kPSmem = (size_t)kPStages * kPStage + kStgBytes + 2 * kPStages * 8 + 1024;
+
+struct RowArgs {
+  const __nv_bfloat16* a; const __nv_bfloat16* bias; const __nv_bfloat16* res;
+  const float* row_scale; const __nv_bfloat16* aux;
+  __nv_bfloat16* y; __nv_bfloat16* out; __nv_bfloat16* aux_out;
+  const int* a_map; const int* c_map;
+  int M, N, K, act, scale_div, row_scale_on, map_len, b_kmajor, tiles_n, tiles;
+};
+
+// Row m through a row map of period len (no map: m itself), as gemm.cu's.
+__device__ __forceinline__ int map_row(const int* map, int len, int m) {
+  return map == nullptr ? m : (m / len) * len + map[m % len];
+}
+
+__device__ __forceinline__ void mbar_init(unsigned addr, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(addr), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned addr, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(addr),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned addr) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(addr) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned addr, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(addr),
+               "r"(bytes)
+               : "memory");
+}
+// an arrive on the barrier once this thread's earlier cp.async copies land
+__device__ __forceinline__ void cp_async_mbar_arrive(unsigned addr) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(addr) : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map, unsigned mbar,
+                                           int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(mbar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The epilogue of 8 columns (m, n..n+7) from their f32 sums f: bias,
+// activation, y, and out = T(res + T(v)) or, with a row scale, T(res + s v),
+// the residual's 8 values rv loaded ahead; the stored rows through c(m).
+__device__ __forceinline__ void epilogue8(const RowArgs& p, int m, int n, float* f, uint4 rv) {
+  float t[8];
+  const size_t idx = (size_t)map_row(p.c_map, p.map_len, m) * p.N + n;
+  if (p.bias != nullptr) {
+    unpack8(ldg8(p.bias + n), t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] += t[i];
+  }
+  if (p.act == kActGelu) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = gelu_erf(f[i]);
+  } else if (p.act == kActGeluGrad) {
+    unpack8(ldg8(p.aux + idx), t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] *= gelu_erf_grad(t[i]);
+    if (p.aux_out != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) t[i] = gelu_erf(t[i]);
+      *reinterpret_cast<uint4*>(p.aux_out + idx) = pack8(t);
+    }
+  }
+  const uint4 yv = pack8(f);
+  if (p.y != nullptr) *reinterpret_cast<uint4*>(p.y + idx) = yv;
+  if (p.out != nullptr) {
+    // without a row scale the branch is rounded to T first, as the serving
+    // kernels do; with one, res + s * v is rounded once
+    float s = 1.f;
+    if (p.row_scale != nullptr) {
+      if (p.row_scale_on) s = p.row_scale[m / p.scale_div];
+    } else {
+      unpack8(yv, f);
+    }
+    unpack8(rv, t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = t[i] + s * f[i];
+    *reinterpret_cast<uint4*>(p.out + idx) = pack8(f);
+  }
+}
+
+__global__ void __launch_bounds__(kPThreads, 1)
+    gemm_rows_kernel(const __grid_constant__ CUtensorMap a_tmap,
+                     const __grid_constant__ CUtensorMap b_tmap, RowArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle repeats every 1024 bytes: stages start on such a boundary
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kPStages * kPStage + kStgBytes);
+  const unsigned full0 = smem_u32(bars), empty0 = smem_u32(bars + kPStages);
+  const bool gather = p.a_map != nullptr;  // A's rows by cp.async through the map
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int s = 0; s < kPStages; ++s) {
+      // the TMA thread's expect_tx, and with the gather 128 cp.async arrivals
+      mbar_init(full0 + 8 * s, gather ? 128 + 1 : 1);
+      mbar_init(empty0 + 8 * s, 8);  // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int ksteps = (p.K + 63) / 64;
+
+  if (wg == 0) {  // ---- the producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int c = tid & 7, r0 = tid >> 3;  // the gather: chunk c of tile rows r0 + 16 i
+    int it = 0;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int m0 = (tile / p.tiles_n) * kPBM, n0 = (tile % p.tiles_n) * kPBN;
+      int src[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = m0 + r0 + 16 * i;
+        src[i] = gather && m < p.M ? map_row(p.a_map, p.map_len, m) : -1;
+      }
+      for (int ks = 0; ks < ksteps; ++ks, ++it) {
+        const int s = it % kPStages;
+        mbar_wait(empty0 + 8 * s, ((it / kPStages) & 1) ^ 1);
+        unsigned char* sa = smem + s * kPStage;
+        const unsigned sb = smem_u32(sa + kPStageA), full = full0 + 8 * s;
+        const int k0 = ks * 64;
+        if (tid == 0) {
+          mbar_expect_tx(full, kPBN * 128 + (gather ? 0 : kPStageA));
+          if (!gather) tma_load_2d(smem_u32(sa), &a_tmap, full, k0, m0);
+          if (p.b_kmajor) {
+            tma_load_2d(sb, &b_tmap, full, k0, n0);
+          } else {
+#pragma unroll
+            for (int q = 0; q < kPBN / 64; ++q)
+              tma_load_2d(sb + q * kPanel, &b_tmap, full, n0 + 64 * q, k0);
+          }
+        }
+        if (gather) {
+          const int k = k0 + 8 * c;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int r = r0 + 16 * i;
+            const bool ok = src[i] >= 0 && k < p.K;
+            cp_async16(sa + r * 128 + ((c ^ (r & 7)) << 4),
+                       p.a + (ok ? (size_t)src[i] * p.K + k : 0), ok);
+          }
+          cp_async_mbar_arrive(full);
+        }
+      }
+    }
+    cp_async_wait<0>();
+  } else {  // ---- the consumers: 64 rows of the tile each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+    float* stg =  // this warp's staging slice
+        reinterpret_cast<float*>(smem + kPStages * kPStage) + (cw * 4 + warp) * 8 * kStgPitch;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int m0 = (tile / p.tiles_n) * kPBM, n0 = (tile % p.tiles_n) * kPBN;
+      float d[kPBN / 2];
+#pragma unroll
+      for (int i = 0; i < kPBN / 2; ++i) d[i] = 0.f;
+      fence_acc(d);
+      for (int ks = 0; ks < ksteps; ++ks, ++it) {
+        const int s = it % kPStages;
+        mbar_wait(full0 + 8 * s, (it / kPStages) & 1);
+        unsigned char* sa = smem + s * kPStage;
+        if (gather) fence_proxy_async();  // the landed cp.async rows, to the tensor cores
+        const unsigned a0 = smem_u32(sa) + cw * kPanel, b0 = smem_u32(sa + kPStageA);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = smem_desc(a0 + kk * 32, 16, 1024);
+          if (p.b_kmajor)
+            wgmma_m64n128k16<0, 0>(d, da, smem_desc(b0 + kk * 32, 16, 1024));
+          else
+            wgmma_m64n128k16<0, 1>(d, da, smem_desc(b0 + kk * 2048, kPanel, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's products are done: release its stage
+        fence_acc(d);
+        if (ks > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kPStages));
+      }
+      wgmma_wait<0>();
+      fence_acc(d);
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kPStages));
+      // the epilogue: this warp's 16 rows, 8 at a time, through its own
+      // staging slice (16-byte stores), no block barrier
+      const int mw = m0 + cw * 64 + 16 * warp;  // the warp's first row
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows l/4 (d[4j], d[4j+1]), then l/4 + 8
+#pragma unroll
+        for (int j = 0; j < kPBN / 8; ++j)
+          *reinterpret_cast<float2*>(stg + (lane >> 2) * kStgPitch + 8 * j + 2 * (lane & 3)) =
+              make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+        __syncwarp();
+        constexpr int kIt = 8 * (kPBN / 8) / 32;  // chunks of 8 columns a lane
+        uint4 rv[kIt];  // the residual first, every load of it in flight together
+#pragma unroll
+        for (int i = 0; i < kIt; ++i) {
+          const int e = lane + 32 * i, m = mw + 8 * h + e / (kPBN / 8);
+          const int n = n0 + (e % (kPBN / 8)) * 8;
+          rv[i] = make_uint4(0, 0, 0, 0);
+          if (p.res != nullptr && m < p.M && n < p.N)
+            rv[i] = ldg8(p.res + (size_t)map_row(p.c_map, p.map_len, m) * p.N + n);
+        }
+#pragma unroll
+        for (int i = 0; i < kIt; ++i) {
+          const int e = lane + 32 * i, r = e / (kPBN / 8), c8 = (e % (kPBN / 8)) * 8;
+          const int m = mw + 8 * h + r, n = n0 + c8;
+          if (m >= p.M || n >= p.N) continue;
+          float f[8];
+          *reinterpret_cast<float4*>(f) =
+              *reinterpret_cast<const float4*>(stg + r * kStgPitch + c8);
+          *reinterpret_cast<float4*>(f + 4) =
+              *reinterpret_cast<const float4*>(stg + r * kStgPitch + c8 + 4);
+          epilogue8(p, m, n, f, rv[i]);
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query so
+// that nothing new is linked; null where it is missing
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static bool looked = false;
+  if (!looked) {
+    looked = true;
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// A 2-D tensor map of a row-major (rows, cols) bf16 matrix, boxes of 64
+// columns (one 128-byte swizzled line) by box_rows rows
+int tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+}  // namespace mumpy
+
+extern "C" int mumpy_gemm_rows(const void* a, const void* b, const void* bias, const void* res,
+                               const float* row_scale, const void* aux, void* y, void* out,
+                               void* aux_out, const int* a_map, const int* c_map, int map_len,
+                               int M, int N, int K, int b_kmajor, int act, int scale_div,
+                               int row_scale_on, void* stream) {
+  using namespace mumpy;
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || act < kActNone || act > kActGeluGrad ||
+      (act == kActGeluGrad && aux == nullptr) || (aux_out != nullptr && act != kActGeluGrad) ||
+      (out != nullptr && res == nullptr) || (row_scale != nullptr && scale_div <= 0) ||
+      ((a_map != nullptr || c_map != nullptr) && (map_len <= 0 || M % map_len)) ||
+      !aligned16(a) || !aligned16(b) || !aligned16(bias) || !aligned16(res) ||
+      !aligned16(aux) || !aligned16(y) || !aligned16(out) || !aligned16(aux_out))
+    return (int)cudaErrorInvalidValue;
+  static_assert(kPSmem <= 232448, "the ring, the staging and the barriers fit in 227 KB");
   static bool attr = false;  // once per process (one device)
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_sm90_kernel<kTn, kWg, kKB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        gemm_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPSmem);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  const dim3 grid((p.N + kBN - 1) / kBN, (p.M + kBM - 1) / kBM, splits);
-  gemm_sm90_kernel<kTn, kWg, kKB><<<grid, 128 * kWg, smem, s>>>(p);
+  // B: K-major (N, K) boxes of 64 K x 128 rows, or N-major (K, N) boxes of
+  // 64 N x 64 K; A (unmapped): (M, K) boxes of 64 K x 128 rows
+  CUtensorMap a_tmap{}, b_tmap;
+  int err = b_kmajor ? tensor_map(&b_tmap, b, N, K, kPBN) : tensor_map(&b_tmap, b, K, N, 64);
+  if (err == 0 && a_map == nullptr) err = tensor_map(&a_tmap, a, M, K, kPBM);
+  if (err != 0) return err;
+  const int tiles_n = (N + kPBN - 1) / kPBN, tiles = ((M + kPBM - 1) / kPBM) * tiles_n;
+  RowArgs p{static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(bias),
+            static_cast<const __nv_bfloat16*>(res), row_scale,
+            static_cast<const __nv_bfloat16*>(aux), static_cast<__nv_bfloat16*>(y),
+            static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(aux_out), a_map, c_map,
+            M, N, K, act, scale_div, row_scale_on, map_len, b_kmajor, tiles_n, tiles};
+  gemm_rows_kernel<<<std::min(tiles, sm_count()), kPThreads, kPSmem,
+                     static_cast<cudaStream_t>(stream)>>>(a_tmap, b_tmap, p);
   return (int)cudaGetLastError();
 }
-
-constexpr int kSms = 132;  // H100 SXM
-
-}  // namespace mumpy
 
 extern "C" int mumpy_gemm_sm90(const void* a, const void* b, const void* bias, const void* res,
                                const float* row_scale, const void* aux, void* y, void* out,
                                void* aux_out, int M, int N, int K, int b_kmajor, int act,
                                int scale_div, int row_scale_on, void* stream) {
-  using namespace mumpy;
-  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || act < kActNone || act > kActGeluGrad ||
-      (act == kActGeluGrad && aux == nullptr) || (aux_out != nullptr && act != kActGeluGrad) ||
-      (out != nullptr && res == nullptr) || (row_scale != nullptr && scale_div <= 0) ||
-      !aligned16(a) || !aligned16(b) || !aligned16(bias) || !aligned16(res) ||
-      !aligned16(aux) || !aligned16(y) || !aligned16(out) || !aligned16(aux_out))
-    return (int)cudaErrorInvalidValue;
-  Sm90Args p{static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-             static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(res),
-             row_scale, static_cast<const __nv_bfloat16*>(aux),
-             static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(out),
-             static_cast<__nv_bfloat16*>(aux_out), nullptr, nullptr, nullptr,
-             M, N, K, act, scale_div, row_scale_on, 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 128-row tiles (two warpgroups) once they fill every SM twice; else 64-row
-  // tiles, two blocks to an SM
-  const long tiles = (long)((M + 127) / 128) * ((N + kBN - 1) / kBN);
-  if (tiles >= 2 * kSms)
-    return b_kmajor ? launch_sm90<false, 2, true>(p, 1, s) : launch_sm90<false, 2, false>(p, 1, s);
-  return b_kmajor ? launch_sm90<false, 1, true>(p, 1, s) : launch_sm90<false, 1, false>(p, 1, s);
+  return mumpy_gemm_rows(a, b, bias, res, row_scale, aux, y, out, aux_out, nullptr, nullptr, 0,
+                         M, N, K, b_kmajor, act, scale_div, row_scale_on, stream);
 }
 
 extern "C" int mumpy_gemm_sm90_tn(const void* a, const void* b, float* ws, void* dw, void* db,
@@ -366,11 +607,21 @@ extern "C" int mumpy_gemm_sm90_tn(const void* a, const void* b, float* ws, void*
       dw == nullptr || db == nullptr || (ws == nullptr && rows_per_split < rows) ||
       !aligned16(a) || !aligned16(b) || !aligned16(ws) || !aligned16(dw))
     return (int)cudaErrorInvalidValue;
-  Sm90Args p{static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, ws,
-             static_cast<__nv_bfloat16*>(dw), static_cast<__nv_bfloat16*>(db),
-             M, N, rows, kActNone, 1, 1, rows_per_split};
-  const int splits = (rows + rows_per_split - 1) / rows_per_split;
-  // 64-row tiles of dW, two blocks to an SM: the rows are split for parallelism
-  return launch_sm90<true, 1, false>(p, splits, static_cast<cudaStream_t>(stream));
+  TnArgs p{static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), ws,
+           static_cast<__nv_bfloat16*>(dw), static_cast<__nv_bfloat16*>(db), M, N, rows,
+           rows_per_split};
+  constexpr size_t smem = (size_t)kTnStages * kTnStage + 1024;
+  static_assert(kTnBM * kStgPitch * sizeof(float) <= kTnStages * kTnStage,
+                "the epilogue staging fits in the ring");
+  static bool attr = false;  // once per process (one device)
+  if (!attr) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(gemm_tn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  const dim3 grid((N + kTnBN - 1) / kTnBN, (M + kTnBM - 1) / kTnBM,
+                  (rows + rows_per_split - 1) / rows_per_split);
+  gemm_tn_kernel<<<grid, 128, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }

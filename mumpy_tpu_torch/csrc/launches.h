@@ -1,13 +1,17 @@
-// The C entry points of the kernel sources that swin_block_train.cu launches
-// in sequence (each defined in the source named beside it).  Every one
-// launches on `stream` and returns cudaGetLastError().
+// The C entry points of the kernel sources that swin_block_train.cu and
+// swin_pair.cu launch in sequence (each defined in the source named beside
+// it).  Every one launches on `stream` and returns cudaGetLastError().  Then
+// what both sequence files use: the weight order of a Swin block, the scratch
+// arena and the error check.
 #pragma once
+
+#include <cstddef>
 
 extern "C" {
 
 // train_rows.cu
 int mumpy_ln_rows(const void* x, const void* g, const void* b, void* h, float* mu, float* rstd,
-                  int rows, int C, int dtype, void* stream);
+                  int rows, int C, int stats_on, int dtype, void* stream);
 int mumpy_ln_bwd_rows(const void* x, const float* mu, const float* rstd, const void* g,
                       const void* dh, const void* dres, void* dx, int rows, int C, int dtype,
                       void* stream);
@@ -15,6 +19,10 @@ int mumpy_scale_add_rows(const void* a, const void* b, const float* s, void* out
                          int C, int div, int dtype, void* stream);
 
 // gemm_sm90.cu
+int mumpy_gemm_rows(const void* a, const void* b, const void* bias, const void* res,
+                    const float* row_scale, const void* aux, void* y, void* out, void* aux_out,
+                    const int* a_map, const int* c_map, int map_len, int M, int N, int K,
+                    int b_kmajor, int act, int scale_div, int row_scale_on, void* stream);
 int mumpy_gemm_sm90(const void* a, const void* b, const void* bias, const void* res,
                     const float* row_scale, const void* aux, void* y, void* out, void* aux_out,
                     int M, int N, int K, int b_kmajor, int act, int scale_div, int row_scale_on,
@@ -39,3 +47,36 @@ int mumpy_col_sums(const void* dh, const void* x, const float* mu, const float* 
 int mumpy_reduce_splits(const float* ws, int n, const long long* desc, void* const* outs,
                         void* stream);
 }
+
+namespace {
+
+constexpr int kBF16 = 1;
+// a Swin block's 12 weights, in the order the sequences take them
+enum Weight { kLn1G, kLn1B, kWqkv, kBqkv, kWproj, kBproj, kLn2G, kLn2B, kW1, kB1, kW2, kB2 };
+
+using bf16 = unsigned short;  // storage only: the launches take void*
+
+// 256-byte aligned regions of the scratch buffer; with a null base it only
+// counts the bytes
+struct Arena {
+  char* base;
+  size_t used;
+  template <typename T> T* take(size_t n) {
+    const size_t off = (used + 255) & ~size_t(255);
+    used = off + n * sizeof(T);
+    return base == nullptr ? nullptr : reinterpret_cast<T*>(base + off);
+  }
+};
+
+char* aligned256(void* p) {
+  const size_t a = reinterpret_cast<size_t>(p);
+  return reinterpret_cast<char*>((a + 255) & ~size_t(255));
+}
+
+#define TRY(call)                        \
+  do {                                   \
+    const int err_ = (int)(call);        \
+    if (err_ != 0) return err_;          \
+  } while (0)
+
+}  // namespace

@@ -1,8 +1,12 @@
 // The bf16 launch sequences of the whole-block training kernel
-// (ops/swin_block_train.py, #8), forward and backward: one call from Python
-// each, which launches every kernel of the sequence in turn on the caller's
-// stream, the intermediates in one scratch buffer that the caller allocates
-// (mumpy_swin_block_train_scratch gives its size).
+// (ops/swin_block_train.py, #8) and of ln_mlp_train (ops/ln_mlp_train.py,
+// #10), forward and backward: one call from Python each, which launches every
+// kernel of the sequence in turn on the caller's stream, the intermediates in
+// one scratch buffer that the caller allocates (mumpy_swin_block_train_scratch
+// and mumpy_ln_mlp_train_scratch give its size).  #10's backward is #8's MLP
+// half (mlp_bwd), with its own reduce_splits launch; #10 replaces
+// mumpy_tpu/ops/pallas/ln_mlp_vjp.py:fused_ln_mlp_train (_fwd_kernel,
+// _bwd_kernel).
 //
 // Replaces, with the kernels it launches, mumpy_tpu/ops/pallas/
 // swin_block_vjp.py:fused_block_train (_train_fwd_kernel, _train_bwd_kernel,
@@ -39,13 +43,8 @@
 
 namespace {
 
-constexpr int kBF16 = 1;
 constexpr int kSplitBlocks = 264;  // cuda_lib._SPLIT_BLOCKS: blocks a row-split sum aims for
 constexpr int kAttnBlocks = 1056;  // cuda_lib.window_attention_bwd's blocks
-enum Weight { kLn1G, kLn1B, kWqkv, kBqkv, kWproj, kBproj, kLn2G, kLn2B, kW1, kB1, kW2, kB2 };
-
-using bf16 = unsigned short;  // storage only: the launches take void*
-
 // cuda_lib._rows_per_split: enough splits that `blocks` blocks per split fill
 // about kSplitBlocks, each split at least 256 rows
 int rows_per_split(long long rows, int blocks) {
@@ -53,18 +52,6 @@ int rows_per_split(long long rows, int blocks) {
       std::max(1LL, std::min((long long)(kSplitBlocks + blocks - 1) / blocks, rows / 256));
   return (int)((rows + splits - 1) / splits);
 }
-
-// 256-byte aligned regions of the scratch buffer; with a null base it only
-// counts the bytes
-struct Arena {
-  char* base;
-  size_t used;
-  template <typename T> T* take(size_t n) {
-    const size_t off = (used + 255) & ~size_t(255);
-    used = off + n * sizeof(T);
-    return base == nullptr ? nullptr : reinterpret_cast<T*>(base + off);
-  }
-};
 
 struct Dims {
   int R, N, C, hidden, H, P;
@@ -108,27 +95,47 @@ Fwd fwd_layout(Arena& a, const Dims& d) {
   return r;
 }
 
+// The MLP half's backward (ln_mlp_train's, and swin_block_train's second
+// half): its recomputed and gradient rows and its three row-split sums
+struct MlpBwd {
+  bf16 *h, *f1, *df2, *g, *df1, *dh;
+  float *mu, *rstd;
+  Sum ln, w1, w2;
+};
+
+MlpBwd mlp_bwd_layout(Arena& a, long long rows, int C, int hid) {
+  const size_t rc = rows * C, rh = rows * hid;
+  MlpBwd r;
+  r.h = a.take<bf16>(rc);
+  r.f1 = a.take<bf16>(rh);
+  r.df2 = a.take<bf16>(rc);
+  r.g = a.take<bf16>(rh);
+  r.df1 = a.take<bf16>(rh);
+  r.dh = a.take<bf16>(rc);
+  r.mu = a.take<float>(rows);
+  r.rstd = a.take<float>(rows);
+  r.ln = plan_sum(a, rows, 2LL * C, (C + 31) / 32);
+  r.w1 = plan_sum(a, rows, (long long)hid * C + hid, tn_blocks(hid, C));  // dW1 (hidden, C)
+  r.w2 = plan_sum(a, rows, (long long)C * hid + C, tn_blocks(C, hid));    // dW2 (C, hidden)
+  return r;
+}
+
 struct Bwd {
-  bf16 *h1, *qkv, *o, *x2, *h2, *f1, *df2, *g, *df1, *dh2, *dx2, *dproj, *dout, *dqkv, *dh1;
-  float *mu1, *rstd1, *mu2, *rstd2, *dmb;
-  Sum ln2, w1, w2, ln1, wqkv, wproj;
+  bf16 *h1, *qkv, *o, *x2, *dx2, *dproj, *dout, *dqkv, *dh1;
+  float *mu1, *rstd1, *dmb;
+  MlpBwd mlp;
+  Sum ln1, wqkv, wproj;
 };
 
 Bwd bwd_layout(Arena& a, const Dims& d) {
   const long long rows = d.rows();
-  const size_t rc = rows * d.C, rh = rows * d.hidden;
-  const int C = d.C, hid = d.hidden;
+  const size_t rc = rows * d.C;
+  const int C = d.C;
   Bwd r;
   r.h1 = a.take<bf16>(rc);
   r.qkv = a.take<bf16>(3 * rc);
   r.o = a.take<bf16>(rc);
   r.x2 = a.take<bf16>(rc);
-  r.h2 = a.take<bf16>(rc);
-  r.f1 = a.take<bf16>(rh);
-  r.df2 = a.take<bf16>(rc);
-  r.g = a.take<bf16>(rh);
-  r.df1 = a.take<bf16>(rh);
-  r.dh2 = a.take<bf16>(rc);
   r.dx2 = a.take<bf16>(rc);
   r.dproj = a.take<bf16>(rc);
   r.dout = a.take<bf16>(rc);
@@ -136,21 +143,12 @@ Bwd bwd_layout(Arena& a, const Dims& d) {
   r.dh1 = a.take<bf16>(rc);
   r.mu1 = a.take<float>(rows);
   r.rstd1 = a.take<float>(rows);
-  r.mu2 = a.take<float>(rows);
-  r.rstd2 = a.take<float>(rows);
   r.dmb = a.take<float>((size_t)d.P * d.H * d.N * d.N);
-  r.ln2 = plan_sum(a, rows, 2LL * C, (C + 31) / 32);
-  r.w1 = plan_sum(a, rows, (long long)hid * C + hid, tn_blocks(hid, C));  // dW1 (hidden, C)
-  r.w2 = plan_sum(a, rows, (long long)C * hid + C, tn_blocks(C, hid));    // dW2 (C, hidden)
+  r.mlp = mlp_bwd_layout(a, rows, C, d.hidden);
   r.ln1 = plan_sum(a, rows, 2LL * C, (C + 31) / 32);
   r.wqkv = plan_sum(a, rows, 3LL * C * C + 3 * C, tn_blocks(3 * C, C));
   r.wproj = plan_sum(a, rows, (long long)C * C + C, tn_blocks(C, C));
   return r;
-}
-
-char* aligned256(void* p) {
-  const size_t a = reinterpret_cast<size_t>(p);
-  return reinterpret_cast<char*>((a + 255) & ~size_t(255));
 }
 
 bool bad_dims(const Dims& d) {
@@ -168,11 +166,70 @@ int attention(const bf16* qkv, bf16* o, const Dims& d, const void* mb, int mb_dt
                                 1.f / std::sqrt((float)hd), kBF16, stream);
 }
 
-#define TRY(call)                        \
-  do {                                   \
-    const int err_ = (int)(call);        \
-    if (err_ != 0) return err_;          \
-  } while (0)
+
+// The MLP half's backward (ln_mlp_train's), from its input x (rows, C) and
+// output gradient dy with the keep factor per `div` rows, its six weights
+// w and gradients dw in the order (ln_g, ln_b, w1, b1, w2, b2), torch
+// layouts: recompute h = LN(x) and f1 = h W1^T + b1; df2 = keep * dy;
+// df1 = (df2 W2) * gelu'(f1), g = gelu(f1); dh = df1 W1; dx = dy + LN'(dh);
+// the LayerNorm, weight and bias sums into m's row splits (or into dw with
+// one split), which the caller's reduce_splits launch adds.
+int mlp_bwd(const void* x, const void* dy, const float* keep, int div, const void* const* w,
+            void* dx, void* const* dw, const MlpBwd& m, int rows, int C, int hidden,
+            int gelu_grad, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  TRY(mumpy_ln_rows(x, w[0], w[1], m.h, m.mu, m.rstd, rows, C, 1, kBF16, stream));
+  TRY(mumpy_gemm_sm90(m.h, w[2], w[3], nullptr, nullptr, nullptr, m.f1, nullptr, nullptr, rows,
+                      hidden, C, 1, 0, 1, 1, stream));
+  TRY(mumpy_scale_add_rows(nullptr, dy, keep, m.df2, rows, C, div, kBF16, stream));
+  if (gelu_grad) {
+    TRY(mumpy_gemm_sm90(m.df2, w[4], nullptr, nullptr, nullptr, m.f1, m.df1, nullptr, m.g, rows,
+                        hidden, C, 0, 2, 1, 1, stream));
+  } else {  // the planted fault: gelu' = 1, and g left 0
+    TRY(cudaMemsetAsync(m.g, 0, (size_t)rows * hidden * sizeof(bf16), st));
+    TRY(mumpy_gemm_sm90(m.df2, w[4], nullptr, nullptr, nullptr, nullptr, m.df1, nullptr, nullptr,
+                        rows, hidden, C, 0, 0, 1, 1, stream));
+  }
+  TRY(mumpy_gemm_sm90(m.df1, w[2], nullptr, nullptr, nullptr, nullptr, m.dh, nullptr, nullptr,
+                      rows, C, hidden, 0, 0, 1, 1, stream));
+  TRY(mumpy_ln_bwd_rows(x, m.mu, m.rstd, w[0], m.dh, dy, dx, rows, C, kBF16, stream));
+  TRY(mumpy_col_sums(m.dh, x, m.mu, m.rstd, m.ln.ws, dw[0], dw[1], rows, C, m.ln.per, kBF16,
+                     stream));
+  TRY(mumpy_gemm_sm90_tn(m.df1, m.h, m.w1.ws, dw[2], dw[3], rows, hidden, C, m.w1.per, stream));
+  TRY(mumpy_gemm_sm90_tn(m.df2, m.g, m.w2.ws, dw[4], dw[5], rows, C, hidden, m.w2.per, stream));
+  return 0;
+}
+
+// The workspaces one reduce_splits launch adds, in split order: each with
+// its two outputs (a weight and its bias, or a LayerNorm's scale and bias)
+struct Reduce {
+  const char* base;
+  long long desc[5 * 8];
+  void* outs[2 * 8];
+  int n = 0;
+  void add(const float* ws, int splits, long long len1, long long len2, int dtype, void* out1,
+           void* out2) {
+    const long long v[5] = {(long long)((const char*)ws - base) / 4, splits, len1, len2, dtype};
+    std::copy(v, v + 5, desc + 5 * n);
+    outs[2 * n] = out1;
+    outs[2 * n + 1] = out2;
+    ++n;
+  }
+  // a sum of more than one split; its first output holds len1 of its floats
+  void add(const Sum& s, long long len1, void* out1, void* out2) {
+    if (s.splits > 1) add(s.ws, s.splits, len1, s.len - len1, kBF16, out1, out2);
+  }
+  void add_mlp(const MlpBwd& m, int C, int hidden, void* const* dw) {
+    add(m.ln, C, dw[0], dw[1]);
+    add(m.w1, (long long)hidden * C, dw[2], dw[3]);
+    add(m.w2, (long long)C * hidden, dw[4], dw[5]);
+  }
+  int launch(void* stream) const {
+    return n == 0 ? 0
+                  : mumpy_reduce_splits(reinterpret_cast<const float*>(base), n, desc, outs,
+                                        stream);
+  }
+};
 
 }  // namespace
 
@@ -197,13 +254,13 @@ extern "C" int mumpy_swin_block_train_fwd(const void* x, const void* mb, int mb_
   Arena a{aligned256(scratch), 0};
   const Fwd r = fwd_layout(a, d);
   const int rows = R * N, s[4] = {mb_s0, mb_s1, mb_s2, mb_s3};
-  TRY(mumpy_ln_rows(x, w[kLn1G], w[kLn1B], r.h, r.mu, r.rstd, rows, C, kBF16, stream));
+  TRY(mumpy_ln_rows(x, w[kLn1G], w[kLn1B], r.h, r.mu, r.rstd, rows, C, 1, kBF16, stream));
   TRY(mumpy_gemm_sm90(r.h, w[kWqkv], w[kBqkv], nullptr, nullptr, nullptr, r.qkv, nullptr,
                       nullptr, rows, 3 * C, C, 1, 0, 1, 1, stream));
   TRY(attention(r.qkv, r.o, d, mb, mb_dtype, s, stream));
   TRY(mumpy_gemm_sm90(r.o, w[kWproj], w[kBproj], x, keep1, nullptr, nullptr, r.x2, nullptr,
                       rows, C, C, 1, 0, N, 1, stream));
-  TRY(mumpy_ln_rows(r.x2, w[kLn2G], w[kLn2B], r.h, r.mu, r.rstd, rows, C, kBF16, stream));
+  TRY(mumpy_ln_rows(r.x2, w[kLn2G], w[kLn2B], r.h, r.mu, r.rstd, rows, C, 1, kBF16, stream));
   TRY(mumpy_gemm_sm90(r.h, w[kW1], w[kB1], nullptr, nullptr, nullptr, r.g, nullptr, nullptr,
                       rows, hidden, C, 1, 1, 1, 1, stream));
   TRY(mumpy_gemm_sm90(r.g, w[kW2], w[kB2], r.x2, keep2, nullptr, nullptr, y, nullptr, rows, C,
@@ -227,36 +284,16 @@ extern "C" int mumpy_swin_block_train_bwd(const void* x, const void* dy, const v
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   // recompute the attention half from x, and x2 (keep1 as the row scale)
-  TRY(mumpy_ln_rows(x, w[kLn1G], w[kLn1B], r.h1, r.mu1, r.rstd1, rows, C, kBF16, stream));
+  TRY(mumpy_ln_rows(x, w[kLn1G], w[kLn1B], r.h1, r.mu1, r.rstd1, rows, C, 1, kBF16, stream));
   TRY(mumpy_gemm_sm90(r.h1, w[kWqkv], w[kBqkv], nullptr, nullptr, nullptr, r.qkv, nullptr,
                       nullptr, rows, 3 * C, C, 1, 0, 1, 1, stream));
   TRY(attention(r.qkv, r.o, d, mb, mb_dtype, s, stream));
   TRY(mumpy_gemm_sm90(r.o, w[kWproj], w[kBproj], x, keep1, nullptr, nullptr, r.x2, nullptr,
                       rows, C, C, 1, 0, N, row_scale_on, stream));
 
-  // the MLP half (ln_mlp_train.py:launch_ln_mlp_train_bwd with keep2 per window)
-  TRY(mumpy_ln_rows(r.x2, w[kLn2G], w[kLn2B], r.h2, r.mu2, r.rstd2, rows, C, kBF16, stream));
-  TRY(mumpy_gemm_sm90(r.h2, w[kW1], w[kB1], nullptr, nullptr, nullptr, r.f1, nullptr, nullptr,
-                      rows, hidden, C, 1, 0, 1, 1, stream));
-  TRY(mumpy_scale_add_rows(nullptr, dy, keep2, r.df2, rows, C, N, kBF16, stream));
-  if (gelu_grad) {
-    TRY(mumpy_gemm_sm90(r.df2, w[kW2], nullptr, nullptr, nullptr, r.f1, r.df1, nullptr, r.g,
-                        rows, hidden, C, 0, 2, 1, 1, stream));
-  } else {
-    TRY(cudaMemsetAsync(r.g, 0, (size_t)rows * hidden * sizeof(bf16), st));
-    TRY(mumpy_gemm_sm90(r.df2, w[kW2], nullptr, nullptr, nullptr, nullptr, r.df1, nullptr,
-                        nullptr, rows, hidden, C, 0, 0, 1, 1, stream));
-  }
-  TRY(mumpy_gemm_sm90(r.df1, w[kW1], nullptr, nullptr, nullptr, nullptr, r.dh2, nullptr,
-                      nullptr, rows, C, hidden, 0, 0, 1, 1, stream));
-  TRY(mumpy_ln_bwd_rows(r.x2, r.mu2, r.rstd2, w[kLn2G], r.dh2, dy, r.dx2, rows, C, kBF16,
-                        stream));
-  TRY(mumpy_col_sums(r.dh2, r.x2, r.mu2, r.rstd2, r.ln2.ws, dw[kLn2G], dw[kLn2B], rows, C,
-                     r.ln2.per, kBF16, stream));
-  TRY(mumpy_gemm_sm90_tn(r.df1, r.h2, r.w1.ws, dw[kW1], dw[kB1], rows, hidden, C, r.w1.per,
-                         stream));
-  TRY(mumpy_gemm_sm90_tn(r.df2, r.g, r.w2.ws, dw[kW2], dw[kB2], rows, C, hidden, r.w2.per,
-                         stream));
+  // the MLP half (ln_mlp_train's backward with keep2 per window)
+  TRY(mlp_bwd(r.x2, dy, keep2, N, w + kLn2G, r.dx2, dw + kLn2G, r.mlp, rows, C, hidden,
+              gelu_grad, stream));
 
   // the attention half (attn_ln_train.py:attn_bwd_from with keep1 per window)
   TRY(mumpy_scale_add_rows(nullptr, r.dx2, keep1, r.dproj, rows, C, N, kBF16, stream));
@@ -279,26 +316,63 @@ extern "C" int mumpy_swin_block_train_bwd(const void* x, const void* dy, const v
                          r.wproj.per, stream));
 
   // one launch: every split sum in split order, and d(mb) cast to mb's dtype
-  long long desc[5 * 7];
-  void* outs[2 * 7];
-  int n = 0;
-  auto add = [&](const float* ws, int splits, long long len1, long long len2, int dtype,
-                 void* out1, void* out2) {
-    const long long v[5] = {(long long)((const char*)ws - base) / 4, splits, len1, len2, dtype};
-    std::copy(v, v + 5, desc + 5 * n);
-    outs[2 * n] = out1;
-    outs[2 * n + 1] = out2;
-    ++n;
-  };
-  const Sum* sums[6] = {&r.ln2, &r.w1, &r.w2, &r.ln1, &r.wqkv, &r.wproj};
-  const Weight firsts[6] = {kLn2G, kW1, kW2, kLn1G, kWqkv, kWproj};
-  const long long firsts_len[6] = {C, (long long)hidden * C, (long long)C * hidden, C,
-                                   3LL * C * C, (long long)C * C};
-  for (int i = 0; i < 6; ++i)
-    if (sums[i]->splits > 1)
-      add(sums[i]->ws, sums[i]->splits, firsts_len[i], sums[i]->len - firsts_len[i], kBF16,
-          dw[firsts[i]], dw[firsts[i] + 1]);
-  add(r.dmb, 1, (long long)n_mb, 0, mb_dtype, dmb, nullptr);
-  TRY(mumpy_reduce_splits(reinterpret_cast<const float*>(base), n, desc, outs, stream));
+  Reduce red{base};
+  red.add_mlp(r.mlp, C, hidden, dw + kLn2G);
+  red.add(r.ln1, C, dw[kLn1G], dw[kLn1B]);
+  red.add(r.wqkv, 3LL * C * C, dw[kWqkv], dw[kBqkv]);
+  red.add(r.wproj, (long long)C * C, dw[kWproj], dw[kBproj]);
+  red.add(r.dmb, 1, (long long)n_mb, 0, mb_dtype, dmb, nullptr);
+  TRY(red.launch(stream));
   return 0;
+}
+
+// ---- ln_mlp_train (#10): x + keep * fc2(gelu(fc1(LN x))), bf16 ----
+
+extern "C" long long mumpy_ln_mlp_train_scratch(int rows, int C, int hidden, int backward) {
+  if (rows <= 0 || C <= 0 || hidden <= 0) return -1;
+  Arena a{nullptr, 0};
+  if (backward) {
+    mlp_bwd_layout(a, rows, C, hidden);
+  } else {
+    a.take<bf16>((size_t)rows * C);       // h
+    a.take<bf16>((size_t)rows * hidden);  // g
+    a.take<float>(2 * (size_t)rows);      // mu, rstd
+  }
+  return (long long)a.used + 256;
+}
+
+// The forward: h = LN(x) (one row pass), g = gelu(h W1^T + b1), out =
+// T(x + keep[m / div] (g W2^T + b2)); the weights read as stored.
+extern "C" int mumpy_ln_mlp_train_fwd(const void* x, const float* keep, const void* const* w,
+                                      void* out, void* scratch, int rows, int C, int hidden,
+                                      int div, void* stream) {
+  if (rows <= 0 || C <= 0 || hidden <= 0 || div <= 0 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Arena a{aligned256(scratch), 0};
+  bf16* h = a.take<bf16>((size_t)rows * C);
+  bf16* g = a.take<bf16>((size_t)rows * hidden);
+  float* mu = a.take<float>(rows);
+  float* rstd = a.take<float>(rows);
+  TRY(mumpy_ln_rows(x, w[0], w[1], h, mu, rstd, rows, C, 1, kBF16, stream));
+  TRY(mumpy_gemm_sm90(h, w[2], w[3], nullptr, nullptr, nullptr, g, nullptr, nullptr, rows, hidden,
+                      C, 1, 1, 1, 1, stream));
+  TRY(mumpy_gemm_sm90(g, w[4], w[5], x, keep, nullptr, nullptr, out, nullptr, rows, C, hidden, 1,
+                      0, div, 1, stream));
+  return 0;
+}
+
+// The backward, recomputing from x (mlp_bwd), then one reduce_splits launch.
+extern "C" int mumpy_ln_mlp_train_bwd(const void* x, const void* dy, const float* keep,
+                                      const void* const* w, void* dx, void* const* dw,
+                                      void* scratch, int rows, int C, int hidden, int div,
+                                      int gelu_grad, void* stream) {
+  if (rows <= 0 || C <= 0 || hidden <= 0 || div <= 0 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  char* base = aligned256(scratch);
+  Arena a{base, 0};
+  const MlpBwd m = mlp_bwd_layout(a, rows, C, hidden);
+  TRY(mlp_bwd(x, dy, keep, div, w, dx, dw, m, rows, C, hidden, gelu_grad, stream));
+  Reduce red{base};
+  red.add_mlp(m, C, hidden, dw);
+  return red.launch(stream);
 }

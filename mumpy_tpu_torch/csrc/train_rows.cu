@@ -2,7 +2,9 @@
 // ln_mlp_train): one warp per row of C channels, 8 rows per block.
 //
 //   ln_rows:        h = T(xhat * g + b), with the row statistics mu and rstd
-//                   written out in f32 (xhat = (x - mu) * rstd, eps 1e-5)
+//                   written out in f32 (xhat = (x - mu) * rstd, eps 1e-5);
+//                   stats_on = 0 takes mu = 0 and rstd = 1, the planted fault
+//                   of the checks (the serving sequences' LayerNorms)
 //   ln_bwd_rows:    dx = T(dres + (dxh - mean(dxh) - xhat * mean(dxh * xhat)) * rstd),
 //                   dxh = dh * g: the LayerNorm backward plus the residual's
 //                   pass-through gradient
@@ -24,19 +26,23 @@ template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
 ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ b,
                T* __restrict__ h, float* __restrict__ mu_out, float* __restrict__ rstd_out,
-               int rows, int C) {
+               int rows, int C, int stats_on) {
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= rows) return;
   const T* xr = x + (size_t)row * C;
   float s = 0.f;
   for (int k = lane; k < C; k += 32) s += to_f<T>(xr[k]);
-  const float mu = warp_sum(s) / C;
+  float mu = warp_sum(s) / C;
   float v = 0.f;
   for (int k = lane; k < C; k += 32) {
     const float d = to_f<T>(xr[k]) - mu;
     v += d * d;
   }
-  const float rs = rsqrtf(warp_sum(v) / C + 1e-5f);
+  float rs = rsqrtf(warp_sum(v) / C + 1e-5f);
+  if (!stats_on) {
+    mu = 0.f;
+    rs = 1.f;
+  }
   T* hr = h + (size_t)row * C;
   for (int k = lane; k < C; k += 32)
     hr[k] = from_f<T>((to_f<T>(xr[k]) - mu) * rs * to_f<T>(g[k]) + to_f<T>(b[k]));
@@ -94,7 +100,8 @@ inline dim3 row_grid(int rows) { return dim3((rows + kRowsPerBlock - 1) / kRowsP
 }  // namespace mumpy
 
 extern "C" int mumpy_ln_rows(const void* x, const void* g, const void* b, void* h, float* mu,
-                             float* rstd, int rows, int C, int dtype, void* stream) {
+                             float* rstd, int rows, int C, int stats_on, int dtype,
+                             void* stream) {
   using namespace mumpy;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
@@ -102,11 +109,11 @@ extern "C" int mumpy_ln_rows(const void* x, const void* g, const void* b, void* 
     ln_rows_kernel<__nv_bfloat16><<<row_grid(rows), kRowThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
         static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(h), mu, rstd,
-        rows, C);
+        rows, C, stats_on);
   else
     ln_rows_kernel<float><<<row_grid(rows), kRowThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<const float*>(b), static_cast<float*>(h), mu, rstd, rows, C);
+        static_cast<const float*>(b), static_cast<float*>(h), mu, rstd, rows, C, stats_on);
   return (int)cudaGetLastError();
 }
 

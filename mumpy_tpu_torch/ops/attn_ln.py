@@ -3,12 +3,14 @@
 Replaces ``mumpy_tpu/ops/pallas/attn_ln.py:fused_attn_ln_prepared`` (Pallas
 ``_attn_kernel``), the attention half of the cross-view blocks; ``y`` is the
 partner stream the next view's CVA consumes.  On the card it is three
-launches: the tiled GEMM with the LayerNorm prologue into packed qkv
-(``csrc/gemm.cu``), the window-attention core with the periodic additive
-mask+bias (``csrc/window_attention.cu``), and the projection GEMM whose
-epilogue writes both ``y`` and ``x + y``.  qkv (3C per token) and the head
-outputs (C) round-trip device memory between launches; keeping them on chip
-needs the launches fused, which is later work.
+launches (four in bf16): the GEMM with the LayerNorm prologue into packed
+qkv (``cuda_lib.gemm``: in bf16 the row statistics, then the persistent
+wgmma GEMM of ``csrc/gemm_sm90.cu``; in f32 ``csrc/gemm.cu``), the
+window-attention core with the periodic additive mask+bias
+(``csrc/window_attention.cu``), and the projection GEMM whose epilogue
+writes both ``y`` and ``x + y``.  qkv (3C per token) and the head outputs
+(C) round-trip device memory between launches; keeping them on chip needs
+the launches fused, which is later work.
 """
 
 from __future__ import annotations
@@ -55,11 +57,12 @@ def attn_ln_plain(x, ops):
     return y, x + y
 
 
-def attention_launches(x2, ops, r, n, a_map=None):
+def attention_launches(x2, ops, r, n, a_map=None, ln_stats_on=True):
     """LN+qkv GEMM and the attention core; returns the (R*N, C) head outputs.
-    With ``a_map`` the qkv GEMM reads its rows through that row map."""
+    With ``a_map`` the qkv GEMM reads its rows through that row map;
+    ``ln_stats_on=False`` (bf16) plants the LayerNorm-statistics fault."""
     qkv, _ = cuda_lib.gemm(x2, ops["w_qkv"], ops["b_qkv"], ln=(ops["ln_g"], ops["ln_b"]),
-                           a_map=a_map)
+                           a_map=a_map, ln_stats_on=ln_stats_on)
     return cuda_lib.packed_window_attention(qkv, ops["mb"], r=r, n=n, heads=ops["heads"])
 
 

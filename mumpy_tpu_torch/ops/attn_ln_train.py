@@ -14,7 +14,7 @@ weight-gradient products.  The port keeps that contract:
 
 * forward, three launches, those of ``attn_ln``: the LN + qkv GEMM, the
   window-attention core, and the projection GEMM whose epilogue writes ``y``
-  and ``x + keep[r] * y`` (the row-scale epilogue of ``csrc/gemm.cu``);
+  and ``x + keep[r] * y`` (the GEMM's row-scale epilogue);
 * backward, eight launches, recomputing from ``x``: the LayerNorm rows
   (h1 and the row statistics, ``csrc/train_rows.cu``), the qkv GEMM, the
   attention core again (o), ``dproj = dy + keep * dout``, ``do = dproj
@@ -28,7 +28,8 @@ weight-gradient products.  The port keeps that contract:
   :func:`attn_bwd_from`, so that ``swin_block_train`` can recompute once and
   reuse the second.  Their products run on ``cuda_lib.train_gemm``: in bf16
   the wgmma GEMM of ``csrc/gemm_sm90.cu`` (its TN form for the weight
-  gradients); the forward stays on ``csrc/gemm.cu``.
+  gradients).  The forward's run on ``cuda_lib.gemm``: in bf16 the same
+  persistent GEMM with its LayerNorm prologue, in f32 ``csrc/gemm.cu``.
 
 The products with transposed weights read the torch Linear weights as they
 are stored, (out, in): the backward's ``do`` and ``dh1`` GEMMs need exactly

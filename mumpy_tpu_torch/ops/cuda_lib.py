@@ -39,6 +39,7 @@ _SIGNATURES = {
     "mumpy_gemm": [_P] * 13 + [_I] * 9 + [_P],
     "mumpy_gemm_tn": [_P] * 5 + [_I] * 5 + [_P],
     "mumpy_gemm_sm90": [_P] * 9 + [_I] * 7 + [_P],
+    "mumpy_gemm_rows": [_P] * 11 + [_I] * 8 + [_P],
     "mumpy_gemm_sm90_tn": [_P] * 5 + [_I] * 4 + [_P],
     "mumpy_col_sums": [_P] * 7 + [_I] * 4 + [_P],
     "mumpy_reduce_splits": [_P, _I, _P, _P, _P],
@@ -46,13 +47,20 @@ _SIGNATURES = {
     "mumpy_cva_sample": [_P] * 4 + [_I] * 7 + [_P],
     "mumpy_vit3_attention": [_P] * 2 + [_I] * 3 + [_F, _I, _P],
     "mumpy_window_attention_bwd": [_P] * 5 + [_I] * 11 + [_F, _I, _I, _P],
-    "mumpy_ln_rows": [_P] * 6 + [_I] * 3 + [_P],
+    "mumpy_ln_rows": [_P] * 6 + [_I] * 4 + [_P],
     "mumpy_swin_block_train_scratch": [_I] * 7,
     "mumpy_swin_block_train_fwd": [_P] * 2 + [_I] * 5 + [_P] * 5 + [_I] * 6 + [_P],
     "mumpy_swin_block_train_bwd": [_P] * 3 + [_I] * 5 + [_P] * 7 + [_I] * 9 + [_P],
     "mumpy_ln_bwd_rows": [_P] * 7 + [_I] * 3 + [_P],
     "mumpy_scale_add_rows": [_P] * 4 + [_I] * 4 + [_P],
+    "mumpy_swin_blocks_scratch": [_I] * 5,
+    "mumpy_swin_blocks_fwd": [_P, _I, _P, _P, _P, _P, _I, _P, _P] + [_I] * 6 + [_P],
+    "mumpy_ln_mlp_train_scratch": [_I] * 4,
+    "mumpy_ln_mlp_train_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "mumpy_ln_mlp_train_bwd": [_P] * 7 + [_I] * 5 + [_P],
 }
+_LONG_RESULTS = ("mumpy_swin_block_train_scratch", "mumpy_swin_blocks_scratch",
+                 "mumpy_ln_mlp_train_scratch")
 
 
 def _nvcc() -> str:
@@ -108,7 +116,8 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        handle.mumpy_swin_block_train_scratch.restype = ctypes.c_longlong
+        for name in _LONG_RESULTS:
+            getattr(handle, name).restype = ctypes.c_longlong
         handle.mumpy_error_string.argtypes = [ctypes.c_int]
         handle.mumpy_error_string.restype = ctypes.c_char_p
         _lib = handle
@@ -170,8 +179,7 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 
 # ---- launch helpers shared by the kernel wrappers ------------------------
 
-_GRID_Y_MAX_ROWS = 65535 * 64  # gemm grid.y limit times the 64-row tile
-_TC_MAX_LN_K = 1024  # kTcMaxLnK: LayerNorm rows the bf16 GEMM holds in registers
+_GRID_Y_MAX_ROWS = 65535 * 64  # csrc/gemm.cu's grid.y limit times its 64-row tile
 
 
 ACT_NONE, ACT_GELU, ACT_GELU_GRAD = 0, 1, 2  # the GEMM epilogue's activation (csrc/gemm.cu)
@@ -179,16 +187,27 @@ ACT_NONE, ACT_GELU, ACT_GELU_GRAD = 0, 1, 2  # the GEMM epilogue's activation (c
 
 def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
          gelu=False, a_sum=1, a_seg=1, a_map=None, c_map=None, row_scale=None,
-         scale_div=1, gelu_grad_of=None, gelu_out=None):
-    """Launch the tiled GEMM (csrc/gemm.cu).  ``x`` is (M*a_sum, K) (the fold
-    reads ``a_sum`` rows per output row), ``w`` (K, N).  Returns ``y`` and/or
-    ``out = res + y`` as requested.  ``a_map`` / ``c_map`` are int32 row maps
-    of a period L dividing M: A row m (and its LayerNorm) is read from x row
-    ``(m // L) * L + a_map[m % L]``, and the residual row and the stored rows
-    of y / out are ``(m // L) * L + c_map[m % L]``.  ``row_scale`` (f32) makes
-    ``out = res + row_scale[m // scale_div] * y``; ``gelu_grad_of`` (M, N)
-    multiplies the product by GELU'(gelu_grad_of), the GELU backward, and
-    then also writes GELU(gelu_grad_of) into ``gelu_out`` when it is given."""
+         scale_div=1, gelu_grad_of=None, gelu_out=None, ln_stats_on=True):
+    """The serving kernels' GEMM: bf16 on the persistent wgmma GEMM
+    (:func:`gemm_sm90`), except the row fold (bias and y only); f32, and the
+    bf16 row fold, on the tiled GEMM (csrc/gemm.cu).  ``x`` is (M*a_sum, K)
+    (the fold reads ``a_sum`` rows per output row), ``w`` (K, N).  Returns ``y``
+    and/or ``out = res + y`` as requested.  ``a_map`` / ``c_map`` are int32
+    row maps of a period L dividing M: A row m (and its LayerNorm) is read
+    from x row ``(m // L) * L + a_map[m % L]``, and the residual row and the
+    stored rows of y / out are ``(m // L) * L + c_map[m % L]``.
+    ``row_scale`` (f32) makes ``out = res + row_scale[m // scale_div] * y``;
+    ``gelu_grad_of`` (M, N) multiplies the product by GELU'(gelu_grad_of),
+    the GELU backward, and then also writes GELU(gelu_grad_of) into
+    ``gelu_out`` when it is given.  ``ln_stats_on=False`` (bf16) plants the
+    checks' fault: the LayerNorm with mean 0 and rstd 1."""
+    if x.dtype == torch.bfloat16 and a_sum == 1:
+        return gemm_sm90(x, w, bias, res=res, want_y=want_y, want_out=want_out, gelu=gelu,
+                         row_scale=row_scale, scale_div=scale_div, gelu_grad_of=gelu_grad_of,
+                         gelu_out=gelu_out, ln=ln, a_map=a_map, c_map=c_map,
+                         ln_stats_on=ln_stats_on)
+    if not ln_stats_on:
+        raise ValueError("the LayerNorm-statistics fault is planted on the bf16 GEMM only")
     k = x.shape[-1]
     m = x.numel() // k // a_sum
     n = w.shape[1]
@@ -201,13 +220,9 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
         ln_g, ln_b = ln
         require(ln_g, "ln scale", x, shape=(k,))
         require(ln_b, "ln bias", x, shape=(k,))
-    map_len = 0
-    for mp, name in ((a_map, "a_map"), (c_map, "c_map")):
-        if mp is not None:
-            require(mp, name, x, dtype=torch.int32)
-            if map_len and mp.numel() != map_len:
-                raise ValueError("a_map and c_map differ in length")
-            map_len = mp.numel()
+    map_len = _map_len(x, m, a_map, c_map)
+    if map_len and a_sum > 1:
+        raise ValueError("gemm: a row map takes no row fold")
     if row_scale is not None:
         require(row_scale, "row scale", x, shape=(-(-m // scale_div),), dtype=torch.float32)
     act = ACT_GELU if gelu else ACT_NONE
@@ -218,18 +233,15 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
         if gelu_grad_of is None:
             raise ValueError("gemm: gelu_out needs gelu_grad_of")
         require(gelu_out, "gelu output", x, shape=(m, n))
-    if map_len and (m % map_len or a_sum > 1):
-        raise ValueError(f"gemm: a row map of length {map_len} needs M={m} to be a "
-                         f"multiple of it and no row fold")
     if m > _GRID_Y_MAX_ROWS:
         raise ValueError(f"gemm: {m} rows exceed the grid limit {_GRID_Y_MAX_ROWS}")
-    if x.dtype == torch.bfloat16:  # the tensor-core loop's limits (csrc/gemm.cu)
-        operands = (x, w, bias, ln_g, ln_b, res, gelu_grad_of, gelu_out)
-        if (k % 8 or n % 8 or (ln is not None and k > _TC_MAX_LN_K)
-                or any(t is not None and t.data_ptr() % 16 for t in operands)):
-            raise ValueError(f"bf16 gemm takes K and N multiples of 8, LayerNorm rows of "
-                             f"at most {_TC_MAX_LN_K} and 16-byte aligned operands; got "
-                             f"K={k} N={n}")
+    if x.dtype == torch.bfloat16:  # the fold's tensor-core loop (csrc/gemm.cu)
+        if ln is not None or want_out or act != ACT_NONE or row_scale is not None:
+            raise ValueError("the bf16 row fold takes no LayerNorm, residual, activation "
+                             "or row scale")
+        if k % 8 or n % 8 or any(t is not None and t.data_ptr() % 16 for t in (x, w, bias)):
+            raise ValueError(f"bf16 gemm takes K and N multiples of 8 and 16-byte aligned "
+                             f"operands; got K={k} N={n}")
     y = torch.empty((m, n), device=x.device, dtype=x.dtype) if want_y else None
     out = None
     if want_out:
@@ -242,17 +254,35 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
     return y, out
 
 
+def _map_len(x, m, a_map, c_map):
+    """The period of the row maps (0 without one): int32 on x's device, of
+    one length, dividing the M rows."""
+    map_len = 0
+    for mp, name in ((a_map, "a_map"), (c_map, "c_map")):
+        if mp is not None:
+            require(mp, name, x, dtype=torch.int32)
+            if map_len and mp.numel() != map_len:
+                raise ValueError("a_map and c_map differ in length")
+            map_len = mp.numel()
+    if map_len and m % map_len:
+        raise ValueError(f"gemm: a row map of length {map_len} needs M={m} to be a "
+                         f"multiple of it")
+    return map_len
+
+
 def gemm_sm90(x, w, bias=None, res=None, want_y=True, want_out=False, gelu=False,
               row_scale=None, scale_div=1, gelu_grad_of=None, gelu_out=None,
-              row_scale_on=True):
-    """Launch the bf16 wgmma GEMM (csrc/gemm_sm90.cu): ``x`` (M, K) @ ``w``
-    (K, N) with :func:`gemm`'s epilogues (bias, GELU, the GELU backward with
-    ``gelu_grad_of`` / ``gelu_out``, ``out = res + y`` or, with ``row_scale``,
-    ``res + row_scale[m // scale_div] * y``) and no prologue or row maps.
-    ``w`` is contiguous or the transpose of a contiguous (N, K) tensor (a
-    torch Linear weight's ``.t()``, read as stored).  ``row_scale_on=False``
-    ignores the row scale: the planted fault of the checks.  Returns ``y``
-    and/or ``out`` as requested."""
+              row_scale_on=True, ln=None, a_map=None, c_map=None, ln_stats_on=True):
+    """Launch the bf16 persistent wgmma GEMM (csrc/gemm_sm90.cu): ``x`` (M, K)
+    @ ``w`` (K, N) with :func:`gemm`'s LayerNorm prologue (``ln`` = (scale,
+    bias): the normalised rows written once by :func:`ln_rows` first, then
+    gathered by the GEMM), row maps and epilogues (bias, GELU, the GELU backward with ``gelu_grad_of``
+    / ``gelu_out``, ``out = res + y`` or, with ``row_scale``, ``res +
+    row_scale[m // scale_div] * y``).  ``w`` is contiguous or the transpose of
+    a contiguous (N, K) tensor (a torch Linear weight's ``.t()``, read as
+    stored).  ``row_scale_on=False`` ignores the row scale and
+    ``ln_stats_on=False`` the LayerNorm statistics (mean 0, rstd 1): the
+    planted faults of the checks.  Returns ``y`` and/or ``out`` as requested."""
     k = x.shape[-1]
     m = x.numel() // k
     n = w.shape[1]
@@ -271,6 +301,12 @@ def gemm_sm90(x, w, bias=None, res=None, want_y=True, want_out=False, gelu=False
         if gelu_grad_of is None:
             raise ValueError("gemm_sm90: gelu_out needs gelu_grad_of")
         require(gelu_out, "gelu output", x, shape=(m, n))
+    ln_g = ln_b = None
+    if ln is not None:
+        ln_g, ln_b = ln
+        require(ln_g, "ln scale", x, shape=(k,))
+        require(ln_b, "ln bias", x, shape=(k,))
+    map_len = _map_len(x, m, a_map, c_map)
     out = None
     if want_out:
         require(res, "res", x, shape=(m, n))
@@ -280,10 +316,18 @@ def gemm_sm90(x, w, bias=None, res=None, want_y=True, want_out=False, gelu=False
     if k % 8 or n % 8 or any(t is not None and t.data_ptr() % 16 for t in vectors):
         raise ValueError(f"gemm_sm90 takes K and N multiples of 8 and 16-byte aligned "
                          f"operands; got K={k} N={n}")
-    check(lib().mumpy_gemm_sm90(ptr(x), ptr(w), ptr(bias), ptr(res), ptr(row_scale),
-                                ptr(gelu_grad_of), ptr(y), ptr(out), ptr(gelu_out), m, n, k,
-                                int(b_kmajor), act, scale_div, int(row_scale_on),
-                                stream_of(x)), "gemm_sm90")
+    if ln is not None:
+        x = ln_rows(x.reshape(m, k), ln_g, ln_b, stats_on=ln_stats_on)[0]
+    if not map_len:  # the training kernels' entry point
+        check(lib().mumpy_gemm_sm90(ptr(x), ptr(w), ptr(bias), ptr(res), ptr(row_scale),
+                                    ptr(gelu_grad_of), ptr(y), ptr(out), ptr(gelu_out), m, n, k,
+                                    int(b_kmajor), act, scale_div, int(row_scale_on),
+                                    stream_of(x)), "gemm_sm90")
+        return y, out
+    check(lib().mumpy_gemm_rows(ptr(x), ptr(w), ptr(bias), ptr(res), ptr(row_scale),
+                                ptr(gelu_grad_of), ptr(y), ptr(out), ptr(gelu_out), ptr(a_map),
+                                ptr(c_map), map_len, m, n, k, int(b_kmajor), act, scale_div,
+                                int(row_scale_on), stream_of(x)), "gemm_rows")
     return y, out
 
 
@@ -399,9 +443,10 @@ def window_attention_bwd(qkv, do, mb, *, r, n, heads, hd, scale, rowsum=True):
     return dqkv, dmb
 
 
-def ln_rows(x, g, b):
+def ln_rows(x, g, b, stats_on=True):
     """Launch the LayerNorm row kernel (csrc/train_rows.cu) on ``x`` (rows, C):
-    returns h = LN(x) in x's dtype and the f32 row statistics mu, rstd."""
+    returns h = LN(x) in x's dtype and the f32 row statistics mu, rstd.
+    ``stats_on=False`` plants the checks' fault: mean 0 and rstd 1."""
     rows, c = x.shape
     require(x, "x", x)
     require(g, "ln scale", x, shape=(c,))
@@ -409,7 +454,7 @@ def ln_rows(x, g, b):
     h = torch.empty_like(x)
     mu, rstd = torch.empty((2, rows), device=x.device, dtype=torch.float32)
     check(lib().mumpy_ln_rows(ptr(x), ptr(g), ptr(b), ptr(h), ptr(mu), ptr(rstd), rows, c,
-                              dtype_code(x), stream_of(x)), "ln_rows")
+                              int(stats_on), dtype_code(x), stream_of(x)), "ln_rows")
     return h, mu, rstd
 
 
@@ -606,3 +651,109 @@ def swin_block_train_bwd(x, mb, keep1, keep2, weights, heads, dy, rowsum=True,
         int(row_scale), stream_of(x)), "swin_block_train_bwd")
     return (dx, dmb, *grads)
 
+
+
+_SERVING_BLOCK = ("ln_g", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj")  # attn, then mlp's
+_SERVING_MLP = ("ln_g", "ln_b", "w1", "b1", "w2", "b2")
+
+
+def swin_blocks_fwd(x, blocks, row_map=None, ln_stats_on=True):
+    """bf16: one or two serving Swin blocks in turn, launched in one call
+    (csrc/swin_pair.cu).  ``x`` (R, N, C); ``blocks`` the blocks'
+    ``swin_block`` operands (weights (in, out), the (P, H, N, N) mask+bias);
+    ``row_map`` (int32, the period of one image) the first block's row map,
+    as :func:`gemm`'s ``a_map`` for its qkv product and ``c_map`` for its
+    projection.  ``ln_stats_on=False`` plants the checks' fault (every
+    LayerNorm with mean 0 and rstd 1).  Returns y (R, N, C)."""
+    r, n, c = x.shape
+    require(x, "x", x, dtype=torch.bfloat16)
+    weights, masks, desc = [], [], []
+    heads = blocks[0]["attn"]["heads"]
+    hidden = blocks[0]["mlp"]["w1"].shape[1]
+    for ops in blocks:
+        a, m = ops["attn"], ops["mlp"]
+        shapes = ((c,), (c,), (c, 3 * c), (3 * c,), (c, c), (c,),
+                  (c,), (c,), (c, hidden), (hidden,), (hidden, c), (c,))
+        ws = [a[k] for k in _SERVING_BLOCK] + [m[k] for k in _SERVING_MLP]
+        for i, (w, shape) in enumerate(zip(ws, shapes)):
+            require(w, f"weight {i}", x, shape=shape)
+        if a["heads"] != heads:
+            raise ValueError("the blocks of one call take one head count")
+        weights += ws
+        masks.append(a["mb"])
+        desc += [dtype_code(a["mb"]), *a["mb"].stride(), _mask_period(a["mb"], x, r, n, heads)]
+    map_len = 0
+    if row_map is not None:
+        require(row_map, "row map", x, dtype=torch.int32)
+        map_len = row_map.numel()
+        if (r * n) % map_len:
+            raise ValueError(f"{r * n} rows are not whole periods of the row map ({map_len})")
+    if n > 64 or c % heads or c // heads > 32 or c % 8 or hidden % 8:
+        raise ValueError(f"the serving block sequence takes n <= 64, a head width of at most "
+                         f"32 and widths that are multiples of 8; got n={n} C={c} "
+                         f"heads={heads} hidden={hidden}")
+    nbytes = lib().mumpy_swin_blocks_scratch(r, n, c, hidden, len(blocks))
+    scratch = torch.empty(nbytes, device=x.device, dtype=torch.uint8)
+    y = torch.empty_like(x)
+    check(lib().mumpy_swin_blocks_fwd(
+        x.data_ptr(), len(blocks), (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights)),
+        (ctypes.c_void_p * len(masks))(*(mb.data_ptr() for mb in masks)),
+        (ctypes.c_int * len(desc))(*desc), ptr(row_map), map_len, y.data_ptr(),
+        scratch.data_ptr(), r, n, c, hidden, heads, int(ln_stats_on), stream_of(x)),
+        "swin_blocks_fwd")
+    return y
+
+
+def _mlp_operands(x, keep, weights, div):
+    """Check the bf16 operands of ln_mlp_train's launch sequences; return
+    (rows, C, hidden)."""
+    rows, c = x.shape
+    require(x, "x", x, dtype=torch.bfloat16)
+    if len(weights) != 6:
+        raise ValueError(f"ln_mlp_train takes 6 weights (b2 may be None), got {len(weights)}")
+    hidden = weights[2].shape[0]
+    for i, (w, shape) in enumerate(zip(weights, ((c,), (c,), (hidden, c), (hidden,),
+                                                 (c, hidden), (c,)))):
+        if w is not None or i < 5:
+            require(w, f"weight {i}", x, shape=shape)
+    require(keep, "keep", x, shape=(-(-rows // div),), dtype=torch.float32)
+    if c % 8 or hidden % 8:
+        raise ValueError(f"ln_mlp_train's bf16 sequence takes widths that are multiples of 8, "
+                         f"got C={c} hidden={hidden}")
+    return rows, c, hidden
+
+
+def ln_mlp_train_fwd(x, keep, weights, div=1):
+    """bf16: ln_mlp_train's forward launches in one call
+    (csrc/swin_block_train.cu).  ``x`` (rows, C), ``keep`` (rows / div,) f32,
+    ``weights`` (ln_g, ln_b, w1, b1, w2, b2) as torch stores them.  Returns
+    ``x + keep * fc2(gelu(fc1(LN x)))``."""
+    rows, c, hidden = _mlp_operands(x, keep, weights, div)
+    scratch = torch.empty(lib().mumpy_ln_mlp_train_scratch(rows, c, hidden, 0),
+                          device=x.device, dtype=torch.uint8)
+    out = torch.empty_like(x)
+    check(lib().mumpy_ln_mlp_train_fwd(
+        x.data_ptr(), keep.data_ptr(), (ctypes.c_void_p * 6)(*(w.data_ptr() for w in weights)),
+        out.data_ptr(), scratch.data_ptr(), rows, c, hidden, div, stream_of(x)),
+        "ln_mlp_train_fwd")
+    return out
+
+
+def ln_mlp_train_bwd(x, dy, keep, weights, div=1, gelu_grad=True):
+    """bf16: ln_mlp_train's backward launches in one call
+    (csrc/swin_block_train.cu), operands as :func:`ln_mlp_train_fwd`'s (the
+    backward reads no b2: None will do) and the output gradient ``dy``.
+    Returns dx and the six weights' gradients; ``gelu_grad=False`` plants the
+    checks' fault (gelu' = 1)."""
+    rows, c, hidden = _mlp_operands(x, keep, weights, div)
+    require(dy, "dy", x, shape=x.shape)
+    scratch = torch.empty(lib().mumpy_ln_mlp_train_scratch(rows, c, hidden, 1),
+                          device=x.device, dtype=torch.uint8)
+    dx = torch.empty_like(x)
+    grads = [torch.empty_like(w) for w in weights[:5]] + [torch.empty_like(weights[0])]
+    ptrs = ctypes.c_void_p * 6
+    check(lib().mumpy_ln_mlp_train_bwd(
+        x.data_ptr(), dy.data_ptr(), keep.data_ptr(), ptrs(*(ptr(w) for w in weights)),
+        dx.data_ptr(), ptrs(*(g.data_ptr() for g in grads)), scratch.data_ptr(), rows, c, hidden,
+        div, int(gelu_grad), stream_of(x)), "ln_mlp_train_bwd")
+    return (dx, *grads)

@@ -16,8 +16,10 @@ On the card it is five launches: the q GEMM, the sampler
 (``csrc/cva_sample.cu``), one GEMM for k and v together, the attention core
 without an additive term (keys past N masked in-kernel), and the projection
 GEMM whose prologue sums the ratio rows, so the projection runs on B1 rows,
-not R.  The GEMMs are bound by their tile loads in bf16 (tensor cores) and by
-the FMA rate in f32; the sampler and the attention core by device-memory
+not R.  In bf16 the q and k/v GEMMs run on the persistent wgmma GEMM of
+``csrc/gemm_sm90.cu`` and the folded projection on ``csrc/gemm.cu``'s wmma
+loop (the one bf16 caller it keeps); f32 runs all three on ``csrc/gemm.cu``'s
+SIMT loop.  The sampler and the attention core are bound by device-memory
 bytes.
 """
 

@@ -1,13 +1,14 @@
 """Kernel ``ln_mlp``: ``x + fc2(gelu(fc1(LN(x))))`` over rows.
 
 Replaces ``mumpy_tpu/ops/pallas/ln_mlp.py:fused_ln_mlp`` (Pallas ``_kernel``),
-the tail of the cross-view blocks and of the global-ViT layers.  On the card it
-is two launches of the tiled GEMM (``csrc/gemm.cu``): LN prologue + bias + erf
-GELU into the (rows, M) hidden tensor, then bias + residual.  The hidden tensor
-makes one round trip through device memory (4C per row each way); fusing it
-away, as the TPU kernel does in VMEM, is later work.  In bf16 the GEMM runs on
-the tensor cores and is bound by issuing its tile loads; in f32 it is a SIMT
-FMA loop, bound by the FMA rate.
+the tail of the cross-view blocks and of the global-ViT layers.  On the card
+it is two GEMMs (``cuda_lib.gemm``): LN prologue + bias + erf GELU into the
+(rows, M) hidden tensor, then bias + residual.  In bf16 both run on the
+persistent wgmma GEMM of ``csrc/gemm_sm90.cu``, the LayerNorm applied to its
+landed A tiles from the row statistics of one ``csrc/train_rows.cu`` launch;
+in f32 on ``csrc/gemm.cu``'s SIMT loop.  The hidden tensor makes one round
+trip through device memory (4C per row each way); fusing it away, as the TPU
+kernel does in VMEM, is later work.
 """
 
 from __future__ import annotations

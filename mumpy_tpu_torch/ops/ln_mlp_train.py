@@ -7,26 +7,30 @@ recomputes from ``x`` and spills h for the weight-gradient products.  It
 carries the tails of the cross-view blocks and of the global-ViT layers on
 the training path.  The port keeps that contract:
 
-* forward, two launches, those of ``ln_mlp``: LN + fc1 + GELU, then fc2 with
-  the row-scale epilogue ``out = x + keep[m] * f2`` (``csrc/gemm.cu``);
-* backward, six launches, recomputing from ``x``: the LayerNorm rows (h and
-  the row statistics, ``csrc/train_rows.cu``), ``f1 = h W1 + b1``,
-  ``df2 = keep * dy``, ``df1 = (df2 W2^T) * gelu'(f1)`` (the GELU-backward
-  epilogue, which reads f1), ``dh = df1 W1^T``, and the LayerNorm backward
-  with ``dy`` added; then the weight and bias gradients of fc1 and fc2 and
-  the LayerNorm scale and bias gradients (``csrc/wgrad.cu``), which the JAX
-  package sums in XLA outside its kernel.  ``gelu(f1)``, which only the fc2
-  weight gradient reads, comes from the GELU-backward epilogue, which reads
-  f1 anyway.  ``swin_block_train`` runs this backward for its MLP half, with
-  its keep2 per window of ``div`` rows; its products run on
-  ``cuda_lib.train_gemm`` (in bf16 the wgmma GEMM of ``csrc/gemm_sm90.cu``,
-  its TN form for the weight gradients), the forward on ``csrc/gemm.cu``.
+* forward: the row statistics (``csrc/train_rows.cu``), LN + fc1 + GELU with
+  the LayerNorm applied to the GEMM's landed A tiles, then fc2 with the
+  row-scale epilogue ``out = x + keep[m] * f2``;
+* backward, recomputing from ``x``: the LayerNorm rows (h and the row
+  statistics), ``f1 = h W1 + b1``, ``df2 = keep * dy``, ``df1 = (df2 W2^T) *
+  gelu'(f1)`` (the GELU-backward epilogue, which reads f1), ``dh = df1
+  W1^T``, and the LayerNorm backward with ``dy`` added; then the weight and
+  bias gradients of fc1 and fc2 and the LayerNorm scale and bias gradients
+  (``csrc/wgrad.cu``), which the JAX package sums in XLA outside its kernel.
+  ``gelu(f1)``, which only the fc2 weight gradient reads, comes from the
+  GELU-backward epilogue, which reads f1 anyway.
 
-As in ``attn_ln_train``, the transposed products read the torch weights as
-stored; the forward builds (in, out) copies once per call.  Rows need not be a
-multiple of 8 (the ViT tails have B*49*3): the GEMM masks its ragged M edge.
-GELU is the exact erf form, as in serving; the Pallas kernels use a
-polynomial erf (A&S 7.1.26, |error| < 1.5e-7).
+In bf16 each direction is one call of ``csrc/swin_block_train.cu``
+(``mumpy_ln_mlp_train_fwd`` / ``_bwd``), which launches the sequence on the
+persistent wgmma GEMM of ``csrc/gemm_sm90.cu`` (its TN form for the weight
+gradients) and reads the torch weights as stored; its backward is the same
+function as ``swin_block_train``'s MLP half, which runs it with its keep2 per
+window of ``div`` rows.  f32 composes the same sequences here
+(:func:`forward_sequence`, :func:`backward_sequence`, also the CPU model of
+the bf16 calls) on ``csrc/gemm.cu``'s SIMT GEMM, with (in, out) copies of
+the weights.  Rows need not be a multiple of 8 (the ViT tails have B*49*3):
+the GEMM masks its ragged M edge.  GELU is the exact erf form, as in
+serving; the Pallas kernels use a polynomial erf (A&S 7.1.26, |error| <
+1.5e-7).
 """
 
 from __future__ import annotations
@@ -54,29 +58,60 @@ def ln_mlp_train_plain(x, p, keep):
     return x + keep.to(x.dtype)[:, None] * f2
 
 
+def _operand(w, dtype):
+    """A weight's (in, out) operand: bf16 reads the torch weight as stored
+    (its ``.t()`` view), f32's GEMM a contiguous copy."""
+    return w.t() if dtype == torch.bfloat16 else w.t().contiguous()
+
+
+def forward_sequence(x, keep, ln_g, ln_b, w1, b1, w2, b2, div=1):
+    """The forward's launches, composed here: the f32 path, and the CPU model
+    of the bf16 call (``mumpy_ln_mlp_train_fwd``)."""
+    g, _ = cuda_lib.gemm(x, _operand(w1, x.dtype), b1, ln=(ln_g, ln_b), gelu=True)
+    _, out = cuda_lib.gemm(g, _operand(w2, x.dtype), b2, res=x, want_y=False, want_out=True,
+                           row_scale=keep, scale_div=div)
+    return out
+
+
 class _LnMlpTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, keep, ln_g, ln_b, w1, b1, w2, b2):
-        w1_t, w2_t = w1.t().contiguous(), w2.t().contiguous()
-        g, _ = cuda_lib.gemm(x, w1_t, b1, ln=(ln_g, ln_b), gelu=True)
-        _, out = cuda_lib.gemm(g, w2_t, b2, res=x, want_y=False, want_out=True,
-                               row_scale=keep)
-        ctx.save_for_backward(x, keep, ln_g, ln_b, w1, b1, w2, w1_t)
+        if x.dtype == torch.bfloat16:
+            out = cuda_lib.ln_mlp_train_fwd(x, keep, (ln_g, ln_b, w1, b1, w2, b2))
+        else:
+            out = forward_sequence(x, keep, ln_g, ln_b, w1, b1, w2, b2)
+        ctx.save_for_backward(x, keep, ln_g, ln_b, w1, b1, w2)
         return out
 
     @staticmethod
     def backward(ctx, dy):
         ln_mlp_train.backward_launches += 1
-        return launch_ln_mlp_train_bwd(*ctx.saved_tensors, dy)
+        x, keep, ln_g, ln_b, w1, b1, w2 = ctx.saved_tensors
+        return launch_ln_mlp_train_bwd(x, keep, ln_g, ln_b, w1, b1, w2, None, dy)
 
 
 def launch_ln_mlp_train_bwd(x, keep, ln_g, ln_b, w1, b1, w2, w1_t, dy, div=1,
                             gelu_grad=True):
-    """The backward's launches.  Returns the gradients of (x, keep, ln_g, ln_b,
-    w1, b1, w2, b2); ``keep`` holds one factor per ``div`` rows.
-    ``gelu_grad=False`` is the planted fault of the checks (gelu' replaced by
-    1; gelu(f1) is then not computed and the fc2 weight gradient is zero)."""
+    """The backward's launches: in bf16 one call of csrc/swin_block_train.cu,
+    in f32 :func:`backward_sequence` (``w1_t``, fc1's (in, out) operand, or
+    None to copy it).  Returns the gradients of (x, keep, ln_g, ln_b, w1, b1,
+    w2, b2); ``keep`` holds one factor per ``div`` rows.  ``gelu_grad=False``
+    is the planted fault of the checks (gelu' replaced by 1; gelu(f1) is then
+    not computed and the fc2 weight gradient is zero)."""
     dy = dy.contiguous()
+    if x.dtype == torch.bfloat16:
+        dx, *grads = cuda_lib.ln_mlp_train_bwd(x, dy, keep, (ln_g, ln_b, w1, b1, w2, None),
+                                               div=div, gelu_grad=gelu_grad)
+        return (dx, None, *grads)
+    return backward_sequence(x, keep, ln_g, ln_b, w1, b1, w2, w1_t, dy, div, gelu_grad)
+
+
+def backward_sequence(x, keep, ln_g, ln_b, w1, b1, w2, w1_t, dy, div=1, gelu_grad=True):
+    """The backward's launches, composed here: the f32 path, and the CPU
+    model of the bf16 call (``mumpy_ln_mlp_train_bwd``).  Arguments and
+    result as :func:`launch_ln_mlp_train_bwd`."""
+    if w1_t is None:
+        w1_t = _operand(w1, x.dtype)
     h, mu, rstd = cuda_lib.ln_rows(x, ln_g, ln_b)
     f1, _ = cuda_lib.train_gemm(h, w1_t, b1)
     df2 = cuda_lib.scale_add_rows(None, dy, keep, div=div)

@@ -6,22 +6,28 @@
 Replaces ``mumpy_tpu/ops/pallas/swin_block.py:fused_swin_block_prepared``
 (Pallas ``_block_kernel``), which runs the block in one launch with its
 weights resident in VMEM.  An SM has 227 KB of shared memory, not 100 MB, so
-the port keeps the contract and not the tiling: five launches, the three of
-``attn_ln`` (without its ``y`` output) then the two of ``ln_mlp``.  The
-additive term has period P windows (P = 1 unshifted, nW shifted; the kernel
-reads window ``r % P``).  Activations round-trip device memory between the
-launches (qkv 3C, head outputs C, hidden 4C per token); the GEMMs are bound
-by their tile loads in bf16 (tensor cores) and by the FMA rate in f32.
-Fusing the block into fewer launches is later work.
+the port keeps the contract and not the tiling: the LayerNorm + qkv GEMM, the
+window-attention core, the projection GEMM with the residual, LN2 + fc1 +
+GELU, fc2 with the residual.  The additive term has period P windows (P = 1
+unshifted, nW shifted; the kernel reads window ``r % P``).  In bf16 the
+block is one call of ``csrc/swin_pair.cu`` (seven launches: the row
+statistics before each LayerNorm, the four products on the persistent wgmma
+GEMM of ``csrc/gemm_sm90.cu`` with the LayerNorm applied to its landed A
+tiles, the attention core of ``csrc/window_attention.cu``); f32 composes the
+same sequence here (:func:`block_sequence`, also the CPU model of the bf16
+call) on ``csrc/gemm.cu``'s SIMT GEMM.  Activations round-trip device memory
+between the launches (qkv 3C, head outputs C, hidden 4C per token).
 """
 
 from __future__ import annotations
+
+import torch
 
 from . import cuda_lib
 from .attn_ln import attention_launches, attn_ln_operands, attn_ln_plain
 from .ln_mlp import ln_mlp_operands, ln_mlp_plain
 
-__all__ = ["swin_block", "swin_block_plain", "swin_block_operands"]
+__all__ = ["swin_block", "swin_block_plain", "swin_block_operands", "block_sequence"]
 
 
 def swin_block_operands(ln1_g, ln1_b, w_qkv, b_qkv, w_proj, b_proj, ln2_g, ln2_b,
@@ -49,16 +55,29 @@ def swin_block(x, ops):
 
 
 def launch_swin_block(x, ops):
-    """The kernel's launches: attn_ln's (without y), then ln_mlp's."""
+    """The kernel's launches: one call in bf16, :func:`block_sequence` in f32.
+    ``ops["ln_stats_on"] = False`` (bf16) plants the LayerNorm-statistics
+    fault of the checks."""
     r, n, c = x.shape
+    if x.dtype == torch.bfloat16:
+        return cuda_lib.swin_blocks_fwd(x, [ops], ln_stats_on=ops.get("ln_stats_on", True))
+    return block_sequence(x.reshape(r * n, c), ops, r, n).reshape(r, n, c)
+
+
+def block_sequence(x2, ops, r, n, row_map=None, ln_stats_on=True):
+    """One block's launches on its (R*N, C) rows, composed here: attn_ln's
+    (without y), then ln_mlp's.  With ``row_map`` the qkv GEMM gathers its
+    rows through it and the projection GEMM scatters its rows (and reads its
+    residual) through it, so the block runs on shifted windows while its
+    input and output stay unshifted (``swin_pair``)."""
     a, m = ops["attn"], ops["mlp"]
-    x2 = x.reshape(r * n, c)
-    o = attention_launches(x2, a, r, n)
+    o = attention_launches(x2, a, r, n, a_map=row_map, ln_stats_on=ln_stats_on)
     _, x2 = cuda_lib.gemm(o, a["w_proj"], a["b_proj"], res=x2, want_y=False,
-                          want_out=True)
-    h, _ = cuda_lib.gemm(x2, m["w1"], m["b1"], ln=(m["ln_g"], m["ln_b"]), gelu=True)
+                          want_out=True, c_map=row_map)
+    h, _ = cuda_lib.gemm(x2, m["w1"], m["b1"], ln=(m["ln_g"], m["ln_b"]), gelu=True,
+                         ln_stats_on=ln_stats_on)
     _, out = cuda_lib.gemm(h, m["w2"], m["b2"], res=x2, want_y=False, want_out=True)
-    return out.reshape(r, n, c)
+    return out
 
 
 swin_block.launches = 0

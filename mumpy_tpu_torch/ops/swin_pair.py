@@ -14,10 +14,14 @@ attention is row-local, so the shifted block's LN + qkv GEMM reads its rows
 through a row map (unshifted -> shifted), the attention core runs on the
 shifted windows, and the projection GEMM reads its residual and stores its
 output through the same map, back in the unshifted layout.  The MLP half and
-the plain block run on unshifted rows as they are.  Ten launches of
-``csrc/gemm.cu`` and ``csrc/window_attention.cu``; like ``swin_block`` the
-GEMMs are bound by their tile loads in bf16 (tensor cores), and the
-activations between launches round-trip device memory.
+the plain block run on unshifted rows as they are.  In bf16 the pair is one
+call of ``csrc/swin_pair.cu``: fourteen launches, the row statistics before
+each LayerNorm, the products on the persistent wgmma GEMM of
+``csrc/gemm_sm90.cu`` (the LayerNorm applied to its landed A tiles, the maps
+in its A loads and its epilogue's residual loads and stores) and the attention
+core of ``csrc/window_attention.cu``; f32 composes the same sequence here
+(``swin_block.block_sequence``, also the CPU model of the bf16 call) on
+``csrc/gemm.cu``.  The activations between launches round-trip device memory.
 
 The roll is taken on the temporally folded ``(T*H, W)`` grid, as the JAX
 package's ``ops/window.py:img_to_window_perm`` takes it: for a view with three
@@ -29,8 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .attn_ln import attention_launches
-from .swin_block import launch_swin_block, swin_block_plain
+from .swin_block import block_sequence, swin_block_plain
 from .window import partition_tokens, unpartition_tokens
 
 __all__ = ["swin_pair", "swin_pair_plain", "swin_pair_operands", "shift_row_map"]
@@ -77,21 +80,20 @@ def swin_pair(x, ops):
 
 def launch_swin_pair(x, ops):
     """The kernel's launches: the shifted block with its rows gathered by the
-    qkv GEMM and scattered back by the projection GEMM, then the plain block."""
+    qkv GEMM and scattered back by the projection GEMM, then the plain block;
+    one call in bf16.  ``ops["ln_stats_on"] = False`` (bf16) plants the
+    LayerNorm-statistics fault of the checks."""
     r, n, c = x.shape
     gh, gw, _, _ = ops["grid"]
     row_map = ops["map"]
     if row_map.numel() != gh * gw or (r * n) % (gh * gw):
         raise ValueError(f"swin_pair: {r} windows of {n} tokens are not whole "
                          f"{gh}x{gw} images")
-    a, m = ops["a"]["attn"], ops["a"]["mlp"]
-    x2 = x.reshape(r * n, c)
-    o = attention_launches(x2, a, r, n, a_map=row_map)
-    _, x2 = cuda_lib.gemm(o, a["w_proj"], a["b_proj"], res=x2, want_y=False,
-                          want_out=True, c_map=row_map)
-    h, _ = cuda_lib.gemm(x2, m["w1"], m["b1"], ln=(m["ln_g"], m["ln_b"]), gelu=True)
-    _, x2 = cuda_lib.gemm(h, m["w2"], m["b2"], res=x2, want_y=False, want_out=True)
-    return launch_swin_block(x2.reshape(r, n, c), ops["b"])
+    if x.dtype == torch.bfloat16:
+        return cuda_lib.swin_blocks_fwd(x, [ops["a"], ops["b"]], row_map=row_map,
+                                        ln_stats_on=ops.get("ln_stats_on", True))
+    x2 = block_sequence(x.reshape(r * n, c), ops["a"], r, n, row_map=row_map)
+    return block_sequence(x2, ops["b"], r, n).reshape(r, n, c)
 
 
 swin_pair.launches = 0

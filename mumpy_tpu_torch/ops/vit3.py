@@ -10,14 +10,16 @@ tokens.
 
 Replaces ``mumpy_tpu/ops/pallas/vit3.py:fused_vit3_prepared`` (Pallas
 ``_vit3_kernel``), which holds the layer's weights in VMEM and unrolls the
-3x3 attention with head reducer matmuls.  On the card it is five launches: the
-LN + qkv GEMM over all 3R rows at once (``csrc/gemm.cu``; the time-major
-layout makes the three slabs one matrix), the n = 3 attention
-(``csrc/vit3_attention.cu``, one warp per row and head, bound by its bytes),
-the projection GEMM with bias and residual, then ``ln_mlp``'s two GEMMs.  The
-GEMMs carry all but ~0.1% of the flops and are bound by their tile loads in
-bf16 (tensor cores); qkv, the head outputs and the 4C hidden round-trip
-device memory between launches.
+3x3 attention with head reducer matmuls.  On the card it is five launches
+(seven in bf16): the LN + qkv GEMM over all 3R rows at once
+(``cuda_lib.gemm``; the time-major layout makes the three slabs one matrix),
+the n = 3 attention (``csrc/vit3_attention.cu``, one warp per row and head,
+bound by its bytes), the projection GEMM with bias and residual, then
+``ln_mlp``'s two GEMMs.  The GEMMs carry all but ~0.1% of the flops: in bf16
+the persistent wgmma GEMM of ``csrc/gemm_sm90.cu`` (each LayerNorm's row
+statistics one launch of ``csrc/train_rows.cu`` first), in f32
+``csrc/gemm.cu``'s SIMT loop; qkv, the head outputs and the 4C hidden
+round-trip device memory between launches.
 """
 
 from __future__ import annotations

@@ -324,7 +324,9 @@ def _mask(mb, P, H, N, strides, mb_dtype):
 class ModelLib:
     """What csrc/gemm.cu, gemm_sm90.cu, window_attention.cu,
     window_attention_bwd.cu, train_rows.cu, wgrad.cu, cva_sample.cu and
-    vit3_attention.cu compute, on the raw buffers the wrappers pass."""
+    vit3_attention.cu compute, on the raw buffers the wrappers pass, and the
+    launch sequences of swin_pair.cu and swin_block_train.cu, composed from
+    those."""
 
     def mumpy_gemm(self, x, w, bias, g, b, res, a_map, c_map, y, out, row_scale, aux,
                    aux_out, M, N, K, a_sum, a_seg, act, map_len, scale_div, dtype, stream):
@@ -342,6 +344,18 @@ class ModelLib:
             s = torch.ones_like(s)
         return self._gemm(a, b, bias, None, None, res, None, None, y, out, s, aux, aux_out, M,
                           N, K, 1, 1, act, 0, scale_div, torch.bfloat16, b_kmajor)
+
+    def mumpy_gemm_rows(self, a, b, bias, res, row_scale, aux, y, out, aux_out, a_map, c_map,
+                        map_len, M, N, K, b_kmajor, act, scale_div, row_scale_on, stream):
+        # the persistent GEMM: mumpy_gemm_sm90's operands and checks, with the maps
+        assert K % 8 == 0 and N % 8 == 0
+        assert all(p is None or p % 16 == 0 for p in (a, b, bias, res, aux, y, out, aux_out))
+        assert (a_map is None and c_map is None) or (map_len > 0 and M % map_len == 0)
+        s = None if row_scale is None else _view(row_scale, -(-M // scale_div), torch.float32)
+        if s is not None and not row_scale_on:
+            s = torch.ones_like(s)
+        return self._gemm(a, b, bias, None, None, res, a_map, c_map, y, out, s, aux, aux_out, M,
+                          N, K, 1, 1, act, map_len, scale_div, torch.bfloat16, b_kmajor)
 
     def _gemm(self, x, w, bias, g, b, res, a_map, c_map, y, out, s, aux, aux_out, M, N, K,
               a_sum, a_seg, act, map_len, scale_div, dt, w_kmajor=False):
@@ -513,11 +527,75 @@ class ModelLib:
             _view(dw[i], g.numel(), torch.bfloat16).copy_(g.reshape(-1))
         return 0
 
-    def mumpy_ln_rows(self, x, g, b, h, mu, rstd, rows, C, dtype, stream):
+    # csrc/swin_pair.cu launches, for bf16, the block sequence that
+    # ops/swin_block.py composes for f32: the model runs that composition
+    def mumpy_swin_blocks_scratch(self, R, N, C, hidden, blocks):
+        return 256
+
+    def mumpy_swin_blocks_fwd(self, x, blocks, w, mb, mb_desc, row_map, map_len, y, scratch,
+                              R, N, C, hidden, H, ln_stats_on, stream):
+        from mumpy_tpu_torch.ops import swin_block
+
+        bf = torch.bfloat16
+        shapes = ((C,), (C,), (C, 3 * C), (3 * C,), (C, C), (C,), (C,), (C,), (C, hidden),
+                  (hidden,), (hidden, C), (C,))
+        names = ("ln_g", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj",
+                 "ln_g", "ln_b", "w1", "b1", "w2", "b2")
+        out = _view(x, R * N * C, bf).reshape(R * N, C)
+        rmap = None if row_map is None else _view(row_map, map_len, torch.int32)
+        for i in range(blocks):
+            ws = [_view(w[12 * i + j], math.prod(shape), bf).reshape(shape)
+                  for j, shape in enumerate(shapes)]
+            dtype, s0, s1, s2, s3, P = mb_desc[6 * i: 6 * i + 6]
+            ops = {"attn": {**dict(zip(names[:6], ws[:6])), "heads": H,
+                            "mb": _mask(mb[i], P, H, N, (s0, s1, s2, s3), dtype).to(DTYPES[dtype])},
+                   "mlp": dict(zip(names[6:], ws[6:]))}
+            out = swin_block.block_sequence(out, ops, R, N, row_map=rmap if i == 0 else None,
+                                            ln_stats_on=bool(ln_stats_on))
+        _view(y, R * N * C, bf).copy_(out.reshape(-1))
+        return 0
+
+    # csrc/swin_block_train.cu's ln_mlp_train calls, the sequences
+    # ops/ln_mlp_train.py composes for f32, likewise
+    @staticmethod
+    def _mlp(x, keep, w, rows, C, hidden, div):
+        bf = torch.bfloat16
+        shapes = ((C,), (C,), (hidden, C), (hidden,), (C, hidden), (C,))
+        ws = [None if w[i] is None else _view(w[i], math.prod(shape), bf).reshape(shape)
+              for i, shape in enumerate(shapes)]
+        return (_view(x, rows * C, bf).reshape(rows, C),
+                _view(keep, -(-rows // div), torch.float32), ws)
+
+    def mumpy_ln_mlp_train_scratch(self, rows, C, hidden, backward):
+        return 256
+
+    def mumpy_ln_mlp_train_fwd(self, x, keep, w, out, scratch, rows, C, hidden, div, stream):
+        from mumpy_tpu_torch.ops import ln_mlp_train
+
+        x, keep, ws = self._mlp(x, keep, w, rows, C, hidden, div)
+        got = ln_mlp_train.forward_sequence(x, keep, *ws, div=div)
+        _view(out, rows * C, torch.bfloat16).copy_(got.reshape(-1))
+        return 0
+
+    def mumpy_ln_mlp_train_bwd(self, x, dy, keep, w, dx, dw, scratch, rows, C, hidden, div,
+                               gelu_grad, stream):
+        from mumpy_tpu_torch.ops import ln_mlp_train
+
+        x, keep, ws = self._mlp(x, keep, w, rows, C, hidden, div)
+        dyt = _view(dy, rows * C, torch.bfloat16).reshape(rows, C)
+        got = ln_mlp_train.backward_sequence(x, keep, *ws[:5], None, dyt, div, bool(gelu_grad))
+        _view(dx, rows * C, torch.bfloat16).copy_(got[0].reshape(-1))
+        for i, g in enumerate(got[2:]):
+            _view(dw[i], g.numel(), torch.bfloat16).copy_(g.reshape(-1))
+        return 0
+
+    def mumpy_ln_rows(self, x, g, b, h, mu, rstd, rows, C, stats_on, dtype, stream):
         dt = DTYPES[dtype]
         X = _view(x, rows * C, dt).reshape(rows, C).float()
         m = X.mean(-1)
         rs = torch.rsqrt(((X - m[:, None]) ** 2).mean(-1) + 1e-5)
+        if not stats_on:  # the planted fault: mean 0, rstd 1
+            m, rs = torch.zeros_like(m), torch.ones_like(rs)
         H = (X - m[:, None]) * rs[:, None] * _view(g, C, dt).float() + _view(b, C, dt).float()
         _view(h, rows * C, dt).copy_(H.reshape(-1).to(dt))
         _view(mu, rows, torch.float32).copy_(m)
