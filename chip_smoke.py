@@ -22,8 +22,10 @@ Phases (any failure exits non-zero, before the result line):
    call each wrong: the mask+bias zeroed (every instance that takes one),
    the pair's row map replaced by the identity (no shift), every LayerNorm of
    the pair's and the block's bf16 sequence with mean 0 and rstd 1 (the
-   statistics ignored), and vit3's scores zeroed (uniform attention;
-   required on the seeded case, see ``planted_faults``);
+   statistics ignored), GELU dropped from the fused MLP (every ``swin_block``
+   instance at C <= 256, whose MLP half runs on ``csrc/mlp_sm90.cu``), and
+   vit3's scores zeroed (uniform attention; required on the seeded case, see
+   ``planted_faults``);
 4. the main path: the flagship forward through ``make_serving_forward`` with
    seeded random weights, once on the kernel path and once on the plain path
    (chosen by argument), f32 logits agreeing within 1e-3 * max(1, max|logit|),
@@ -37,13 +39,18 @@ Phases (any failure exits non-zero, before the result line):
    and the least time the card could take for the same work (``bound_ms``:
    the larger of the bytes over 3.35 TB/s and the flops over 989 TFLOP/s,
    the H100 SXM's HBM rate and dense bf16 tensor-core peak), per instance;
-   then the trace (``serving_trace``, ``mlp_train_trace``; alone with
+   then the trace (``serving_trace``, ``train_trace``; alone with
    ``--trace``): the batch-32 bf16 forward under ``torch.profiler`` (device
    ms against its untraced ms: the idle share; launches by kernel name), the
-   launches by name of every ``swin_pair`` and ``swin_block`` instance of it
-   and of ``ln_mlp_train``'s forward and backward in one 12-clip step, and
-   the persistent GEMM's time beside ``torch.matmul``'s on each product
-   shape of ``swin_pair`` and ``ln_mlp_train`` (``product_yardstick``).
+   launches by name of every ``swin_pair`` and ``swin_block`` instance of it,
+   each ``swin_block`` instance's launches by stage and view with its GEMM
+   launches by product (``block_breakdown``), the launches by name of
+   ``ln_mlp_train``'s and ``attn_ln_train``'s forward and backward in one
+   12-clip step, the persistent GEMM's time beside ``torch.matmul``'s on
+   each product shape of ``swin_pair`` and ``ln_mlp_train``
+   (``product_yardstick``), and the fused MLP's beside the two products it
+   replaced and ``torch.matmul`` -> GELU -> ``torch.matmul`` on #1's
+   C <= 256 instances (``mlp_yardstick``).
 
 Training, the flagship at the DVI recipe's 12 clips per step (6 clips x 2
 inpainting streams, SGD) on seeded synthetic clips and masks, with
@@ -165,8 +172,8 @@ LOGIT_TOL = 1e-3
 EXPECTED_LAUNCHES = {"swin_block": 12, "swin_pair": 18, "attn_ln": 12, "ln_mlp": 12,
                      "cva": 8, "vit3": 12}
 KERNEL_INFO = {  # name -> (CUDA sources it launches, TPU kernel it replaces)
-    "swin_block": (["swin_pair.cu", "gemm_sm90.cu", "train_rows.cu", "window_attention.cu"],
-                   "mumpy_tpu/ops/pallas/swin_block.py:180"),
+    "swin_block": (["swin_pair.cu", "mlp_sm90.cu", "gemm_sm90.cu", "train_rows.cu",
+                    "window_attention.cu"], "mumpy_tpu/ops/pallas/swin_block.py:180"),
     "swin_pair": (["swin_pair.cu", "gemm_sm90.cu", "train_rows.cu", "window_attention.cu"],
                   "mumpy_tpu/ops/pallas/swin_pair.py:191"),
     "attn_ln": (["gemm_sm90.cu", "train_rows.cu", "window_attention.cu"],
@@ -185,8 +192,8 @@ TRAIN_KERNEL_INFO = {  # name -> (CUDA sources, TPU kernel it replaces)
                           "window_attention.cu", "window_attention_bwd.cu", "train_rows.cu",
                           "wgrad.cu"],
                          "mumpy_tpu/ops/pallas/swin_block_vjp.py:587"),
-    "attn_ln_train": (["gemm.cu", "gemm_sm90.cu", "window_attention.cu",
-                       "window_attention_bwd.cu", "train_rows.cu", "wgrad.cu"],
+    "attn_ln_train": (["swin_block_train.cu", "gemm_sm90.cu", "window_attention.cu",
+                       "window_attention_bwd.cu", "train_rows.cu", "wgrad.cu", "gemm.cu"],
                       "mumpy_tpu/ops/pallas/attn_ln_vjp.py:188"),
     "ln_mlp_train": (["swin_block_train.cu", "gemm_sm90.cu", "train_rows.cu", "wgrad.cu",
                       "gemm.cu"], "mumpy_tpu/ops/pallas/ln_mlp_vjp.py:119"),
@@ -271,7 +278,9 @@ def uniform_attention(ops):
 def planted_faults(name, ops):
     """(label, operands, whether the flagship forward's own inputs must show
     it) of every planted fault that applies to an instance (the LayerNorm
-    one on the bf16 sequences of ``swin_pair`` and ``swin_block`` only).  Uniform
+    one on the bf16 sequences of ``swin_pair`` and ``swin_block`` only; GELU
+    dropped on the ``swin_block`` instances whose MLP half runs on the fused
+    kernel, C <= 256).  Uniform
     attention is required to show only on the seeded inputs: the random-weight
     flagship's ViT input has three nearly alike time slices (views 1 and 2
     are tiled over time), so its own softmax is nearly uniform already
@@ -283,9 +292,20 @@ def planted_faults(name, ops):
         faults.append(("identity row map", identity_map(ops), True))
     if name in ("swin_pair", "swin_block"):
         faults.append(("LayerNorm statistics ignored", {**ops, "ln_stats_on": False}, True))
+    if name == "swin_block" and fused_route(ops):
+        faults.append(("GELU dropped", {**ops, "gelu_on": False}, True))
     if name == "vit3":
         faults.append(("scores zeroed", uniform_attention(ops), False))
     return faults
+
+
+def fused_route(ops):
+    """Whether a ``swin_block`` instance's bf16 MLP half runs on the fused
+    MLP (``csrc/mlp_sm90.cu``)."""
+    from mumpy_tpu_torch.ops import cuda_lib
+
+    c, hidden = ops["mlp"]["w1"].shape
+    return hasattr(cuda_lib, "fused_mlp") and cuda_lib.fused_mlp(c, hidden)
 
 
 def tensors_of(obj):
@@ -542,10 +562,11 @@ def train_kernel_run(name, args, cots, fault=None, raw=False):
             if fault == "mask+bias zeroed":
                 mb = torch.zeros_like(mb)
             y, out = alt.launch_attn_ln_train(x, mb, p, keep)
+            # the (in, out) copy serves f32; bf16 reads the weights as stored
             g = alt.launch_attn_ln_train_bwd(
-                x, mb, keep, p["ln_g"], p["ln_b"], p["w_qkv"], p["b_qkv"],
-                p["w_proj"], p["w_qkv"].t().contiguous(), p["heads"], *cots,
-                rowsum=fault != "rowsum dropped")
+                x, mb, keep, p["ln_g"], p["ln_b"], p["w_qkv"], p["b_qkv"], p["w_proj"],
+                p["w_qkv"].t().contiguous() if x.dtype == torch.float32 else None,
+                p["heads"], *cots, rowsum=fault != "rowsum dropped")
             names = ("x", "mb", None, "ln_g", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj")
             res = {"y": y, "out": out}
         else:
@@ -1312,6 +1333,65 @@ def serving_trace(model, dev, clip32, smi):
         with torch.inference_mode():
             launch_breakdown(lambda: [k(*a) for k, a, n in calls for _ in range(n)],
                              f"{name}, one bf16 batch-32 forward's instances", smi)
+    with torch.inference_mode():
+        block_breakdown([(args, count) for (kname, *_), (args, count) in cap.instances.items()
+                         if kname == "swin_block"], smi)
+        for (kname, *_), (args, count) in cap.instances.items():
+            if kname == "swin_block" and fused_route(args[1]):
+                x, ops = args
+                mlp_yardstick(f"swin_block x{count}", x.shape[0] * x.shape[1], ops["mlp"], smi)
+
+
+# the flagship's widths: (stage, views) by C
+BLOCK_STAGES = {96: (0, "views 1-2"), 128: (0, "view 3"), 192: (1, "views 1-2"),
+                256: (1, "view 3"), 384: (2, "views 1-2"), 512: (2, "view 3"),
+                768: (3, "views 1-2"), 1024: (3, "view 3")}
+
+
+def sequence_launches(fn):
+    """[(kernel name, device ms)] of every launch one call of ``fn`` runs on
+    the card, in the order they ran (``torch.profiler``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in events]
+
+
+def block_breakdown(instances, smi):
+    """#1 (``swin_block``) instance by instance (stage and view), each as
+    often as one bf16 batch-32 forward runs it: the device ms of its GEMM
+    launches by product (qkv, proj, fc1, fc2, in the order the block runs
+    them), of its ``ln_rows`` launches, its attention core and, where it
+    runs one, its fused MLP."""
+    from mumpy_tpu_torch.ops.swin_block import swin_block
+
+    for args, count in instances:
+        x = args[0]
+        r, n, c = x.shape
+        swin_block(*args)  # warm-up
+        parts, gemms = {}, 0
+        for kname, ms in sequence_launches(lambda: swin_block(*args)):
+            if "gemm_rows_kernel" in kname:
+                label = ("qkv", "proj", "fc1", "fc2")[gemms] if gemms < 4 else "gemm"
+                gemms += 1
+            elif "ln_rows" in kname:
+                label = "ln_rows"
+            elif "window_attention" in kname:
+                label = "attention"
+            elif "mlp_rows" in kname:
+                label = "fused mlp"
+            else:
+                label = kname[:40]
+            ms0, n0 = parts.get(label, (0.0, 0))
+            parts[label] = (ms0 + count * ms, n0 + count)
+        stage, views = BLOCK_STAGES.get(c, ("?", "?"))
+        log(f"[block] swin_block stage {stage} {views} ({r * n} rows x C {c}) x{count}: "
+            f"device {sum(t for t, _ in parts.values()):.3f} ms; "
+            + ", ".join(f"{label} {t:.3f} ms x{k}" for label, (t, k) in parts.items())
+            + f" ({smi})")
 
 
 def product_yardstick(label, rows, c, hidden, smi, row_map=None, kmajor=False, div=0):
@@ -1360,10 +1440,47 @@ def product_yardstick(label, rows, c, hidden, smi, row_map=None, kmajor=False, d
     return out
 
 
-def mlp_train_trace(cfg, dev, smi, rng):
-    """The launches by kernel name of #10 (``ln_mlp_train``) in one bf16
-    12-clip step: every instance of a plain-path training forward, forward
-    and backward launched directly, each as often as the step runs it."""
+def mlp_yardstick(label, rows, mlp, smi):
+    """#1's MLP half at ``rows`` rows with its own bf16 operands ``mlp`` on
+    seeded rows: the fused MLP (``csrc/mlp_sm90.cu``) beside the two-product
+    route it replaces (``ln_rows``, fc1 with GELU, fc2 with the residual, on
+    the persistent GEMM) and beside ``torch.matmul`` -> GELU ->
+    ``torch.matmul`` on the same normalised rows, a yardstick the port never
+    calls (no single PyTorch call computes the half)."""
+    import torch.nn.functional as F
+
+    from mumpy_tpu_torch.ops import cuda_lib
+
+    c, hidden = mlp["w1"].shape
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = (torch.randn(rows, c, generator=g, device="cuda")).bfloat16()
+    h = F.layer_norm(x, (c,), mlp["ln_g"], mlp["ln_b"])
+
+    def two_products():
+        f, _ = cuda_lib.gemm(x, mlp["w1"], mlp["b1"], ln=(mlp["ln_g"], mlp["ln_b"]), gelu=True)
+        return cuda_lib.gemm(f, mlp["w2"], mlp["b2"], res=x, want_y=False, want_out=True)[1]
+
+    fused = cuda_lib.mlp_rows(x, mlp)
+    err = (fused.float() - two_products().float()).abs().max().item()
+    ms = cuda_ms(lambda: cuda_lib.mlp_rows(x, mlp), reps=10)
+    two = cuda_ms(two_products, reps=10)
+    mm = cuda_ms(lambda: torch.matmul(F.gelu(torch.matmul(h, mlp["w1"])), mlp["w2"]), reps=10)
+    # the GELU's share: the same launch with GELU dropped (the planted fault)
+    bare = cuda_ms(lambda: cuda_lib.mlp_rows(x, mlp, gelu_on=False), reps=10)
+    flops = 4 * rows * c * hidden
+    log(f"[product] {label} fused mlp ({rows} x {c} @ {hidden} @ {c}): {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * flops / ms / 1e9 / (PEAK_FLOPS / 1e12):.1f}% "
+        f"of peak; {bare:.4f} ms without GELU), two products {two:.4f} ms, torch.matmul -> "
+        f"gelu -> torch.matmul {mm:.4f} ms, ratio {ms / mm:.2f}; max |fused - two products| "
+        f"{err:.3g} ({smi})")
+
+
+def train_trace(cfg, dev, smi, rng):
+    """The launches by kernel name of #10 (``ln_mlp_train``) and #9
+    (``attn_ln_train``) in one bf16 12-clip step: every instance of a
+    plain-path training forward, forward and backward launched directly, each
+    as often as the step runs it, forward and backward apart."""
+    from mumpy_tpu_torch.ops import attn_ln_train as alt
     from mumpy_tpu_torch.ops import cuda_lib
     from mumpy_tpu_torch.ops import ln_mlp_train as lmt
     from mumpy_tpu_torch.utils.serving import set_kernel_path
@@ -1375,26 +1492,40 @@ def mlp_train_trace(cfg, dev, smi, rng):
     with TrainCapture() as cap, torch.no_grad():
         model(clip.to(dev), generator=torch.Generator(device=dev).manual_seed(SEED))
     del model
-    calls = []
+    mlp_calls, attn_calls = [], []
     for (name, xshape, _), (args, count) in cap.instances.items():
-        if name != "ln_mlp_train":
+        if name == "swin_block_train":
             continue
-        x, p, keep = cast_train_args(name, args, torch.bfloat16)
-        dy = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
-            xshape, dtype=np.float32)).to(dev, torch.bfloat16)
-        # fc1's (in, out) operand, which the parent's bf16 backward took
-        calls.append((x, p, keep, dy, p["w1"].t().contiguous(), count))
+        args = cast_train_args(name, args, torch.bfloat16)
+        crng = np.random.default_rng(SEED)
+        dy, dout = (torch.from_numpy(crng.standard_normal(xshape, dtype=np.float32)).to(
+            dev, torch.bfloat16) for _ in range(2))
+        if name == "attn_ln_train":
+            x, mb, p, keep = args
+            # qkv's (in, out) operand, which the parent's bf16 backward took
+            attn_calls.append((x, mb, p, keep, dy, dout, p["w_qkv"].t().contiguous(), count))
+            continue
+        x, p, keep = args
+        # fc1's (in, out) operand, which an earlier bf16 backward took
+        mlp_calls.append((x, p, keep, dy, p["w1"].t().contiguous(), count))
         if hasattr(cuda_lib, "swin_blocks_fwd"):  # as in serving_trace
             product_yardstick(f"ln_mlp_train x{count}", x.shape[0], x.shape[1],
                               p["w1"].shape[0], smi, kmajor=True, div=1)
     with torch.no_grad():
         launch_breakdown(lambda: [lmt.launch_ln_mlp_train(x, p, k)
-                                  for x, p, k, _, _, n in calls for _ in range(n)],
+                                  for x, p, k, _, _, n in mlp_calls for _ in range(n)],
                          "ln_mlp_train, one bf16 step's forward launches", smi)
         launch_breakdown(lambda: [lmt.launch_ln_mlp_train_bwd(
             x, k, p["ln_g"], p["ln_b"], p["w1"], p["b1"], p["w2"], w1t, dy)
-            for x, p, k, dy, w1t, n in calls for _ in range(n)],
+            for x, p, k, dy, w1t, n in mlp_calls for _ in range(n)],
             "ln_mlp_train, one bf16 step's backward launches", smi)
+        launch_breakdown(lambda: [alt.launch_attn_ln_train(x, mb, p, k)
+                                  for x, mb, p, k, _, _, _, n in attn_calls for _ in range(n)],
+                         "attn_ln_train, one bf16 step's forward launches", smi)
+        launch_breakdown(lambda: [alt.launch_attn_ln_train_bwd(
+            x, mb, k, p["ln_g"], p["ln_b"], p["w_qkv"], p["b_qkv"], p["w_proj"], wqt,
+            p["heads"], dy, dout) for x, mb, p, k, dy, dout, wqt, n in attn_calls
+            for _ in range(n)], "attn_ln_train, one bf16 step's backward launches", smi)
 
 
 def train_closure(name, args, cots, kernel):
@@ -1532,7 +1663,7 @@ def main() -> int:
         clip32 = torch.from_numpy(rng.standard_normal((32, 3, 224, 224, 3), dtype=np.float32))
         serving_trace(build_model(cfg, dev), dev, clip32, smi)
         torch.cuda.empty_cache()
-        mlp_train_trace(cfg, dev, smi, rng)
+        train_trace(cfg, dev, smi, rng)
         return 0
 
     # ---- 3. every kernel instance vs its plain version ----
@@ -1657,7 +1788,7 @@ def main() -> int:
     # the serving forward's trace, #2's and #1's launches by name, the
     # products' yardstick; #10's launches in one step
     serving_trace(model, dev, clip32, smi)
-    mlp_train_trace(cfg, dev, smi, np.random.default_rng(SEED + 7))
+    train_trace(cfg, dev, smi, np.random.default_rng(SEED + 7))
 
     del fwd, cap, model
 

@@ -30,14 +30,19 @@ int mumpy_gemm_sm90(const void* a, const void* b, const void* bias, const void* 
 int mumpy_gemm_sm90_tn(const void* a, const void* b, float* ws, void* dw, void* db, int rows,
                        int M, int N, int rows_per_split, void* stream);
 
+// mlp_sm90.cu
+int mumpy_mlp_rows(const void* x, const void* ln_g, const void* ln_b, const void* w1,
+                   const void* b1, const void* w2, const void* b2, void* y, int M, int C,
+                   int hidden, int ln_stats_on, int gelu_on, void* stream);
+
 // window_attention.cu, window_attention_bwd.cu
 int mumpy_window_attention(const void* q, const void* k, const void* v, void* o, const void* mb,
                            int R, int N, int H, int hd, int q_mod, int ldq, int ldk, int ldv,
                            int ldo, int P, int mb_dtype, int mb_s0, int mb_s1, int mb_s2,
                            int mb_s3, float scale, int dtype, void* stream);
 int mumpy_window_attention_bwd(const void* qkv, const void* dout, const void* mb, void* dqkv,
-                               float* dmb, int R, int N, int H, int hd, int P, int mb_dtype,
-                               int mb_s0, int mb_s1, int mb_s2, int mb_s3, int chunks,
+                               void* o, float* dmb, int R, int N, int H, int hd, int P,
+                               int mb_dtype, int mb_s0, int mb_s1, int mb_s2, int mb_s3, int chunks,
                                float scale, int rowsum, int dtype, void* stream);
 
 // wgrad.cu

@@ -1,27 +1,33 @@
 // The bf16 launch sequences of the whole-block training kernel
-// (ops/swin_block_train.py, #8) and of ln_mlp_train (ops/ln_mlp_train.py,
-// #10), forward and backward: one call from Python each, which launches every
-// kernel of the sequence in turn on the caller's stream, the intermediates in
-// one scratch buffer that the caller allocates (mumpy_swin_block_train_scratch
-// and mumpy_ln_mlp_train_scratch give its size).  #10's backward is #8's MLP
-// half (mlp_bwd), with its own reduce_splits launch; #10 replaces
-// mumpy_tpu/ops/pallas/ln_mlp_vjp.py:fused_ln_mlp_train (_fwd_kernel,
-// _bwd_kernel).
+// (ops/swin_block_train.py, #8), of attn_ln_train (ops/attn_ln_train.py, #9)
+// and of ln_mlp_train (ops/ln_mlp_train.py, #10), forward and backward: one
+// call from Python each, which launches every kernel of the sequence in turn
+// on the caller's stream, the intermediates in one scratch buffer that the
+// caller allocates (mumpy_swin_block_train_scratch,
+// mumpy_attn_ln_train_scratch and mumpy_ln_mlp_train_scratch give its size).
+// #8's backward is #9's (attn_bwd) and #10's (mlp_bwd) backward halves; #9
+// and #10 each add their own reduce_splits launch.  #9 replaces
+// mumpy_tpu/ops/pallas/attn_ln_vjp.py:fused_attn_ln_train (_fwd_kernel,
+// _bwd_kernel), #10 mumpy_tpu/ops/pallas/ln_mlp_vjp.py:fused_ln_mlp_train
+// (_fwd_kernel, _bwd_kernel).
 //
 // Replaces, with the kernels it launches, mumpy_tpu/ops/pallas/
 // swin_block_vjp.py:fused_block_train (_train_fwd_kernel, _train_bwd_kernel,
-// _train_bwd_dw_kernel).  The sequence is the one ops/swin_block_train.py
-// composes in Python for f32, with the halves it shares with attn_ln_train
-// and ln_mlp_train; bf16 takes it from here because a 12-clip step runs the
-// block 48 times forward and backward, some 30 launches each, and from Python
-// every launch costs tens of microseconds of host time, more than the device
-// time of most of them (PERF.md §6).  Here a launch costs a few microseconds.
+// _train_bwd_dw_kernel).  The sequences are the ones ops/swin_block_train.py,
+// ops/attn_ln_train.py and ops/ln_mlp_train.py compose in Python for f32;
+// bf16 takes them from here because a 12-clip step runs the block 48 times
+// forward and backward, some 30 launches each, and #9 12 times with some 20,
+// and from Python every launch costs tens of microseconds of host time, more
+// than the device time of most of them (PERF.md §6).  Here a launch costs a
+// few microseconds.  Every product reads the torch weights as stored.
 //
 // Forward (x (R*N, C), the (P, H, N, N) mask+bias mb, the keep factors keep1
 // and keep2 per window of N rows, the 12 weights as torch stores them):
 //   h1 = LN1(x); qkv = h1 Wqkv^T + bqkv; o = attention(qkv, mb);
 //   x2 = x + keep1 * (o Wproj^T + bproj); h2 = LN2(x2);
 //   g = gelu(h2 W1^T + b1); y = x2 + keep2 * (g W2^T + b2)
+// (#9's forward is its first line and (y, out) = (o Wproj^T + bproj, x + keep
+// * y).)
 // Backward (dy), recomputing h1, qkv, o, x2, h2 and f1 = h2 W1^T + b1:
 //   df2 = keep2 * dy; df1 = (df2 W2) * gelu'(f1), g = gelu(f1); dh2 = df1 W1;
 //   dx2 = dy + LN2'(dh2); dproj = keep1 * dx2; do = dproj Wproj;
@@ -30,6 +36,9 @@
 //   (col_sums, the TN GEMM) that one reduce_splits launch adds in split
 //   order, with d(mb), summed over the windows in f32, cast to mb's dtype in
 //   the same launch.
+// (#9's backward recomputes h1 and qkv only: dproj = dy + keep * dout, and
+// the attention backward's core also gives o = T(P) V, which the projection's
+// weight gradient reads, from the P it forms anyway: no forward core runs.)
 // The planted faults of the checks: rowsum = 0 (the softmax backward without
 // its rowsum term), gelu_grad = 0 (gelu' replaced by 1 and g left 0),
 // row_scale_on = 0 (the recompute of x2 ignoring keep1).
@@ -120,41 +129,57 @@ MlpBwd mlp_bwd_layout(Arena& a, long long rows, int C, int hid) {
   return r;
 }
 
-struct Bwd {
-  bf16 *h1, *qkv, *o, *x2, *dx2, *dproj, *dout, *dqkv, *dh1;
-  float *mu1, *rstd1, *dmb;
-  MlpBwd mlp;
-  Sum ln1, wqkv, wproj;
+// The attention half's backward (attn_ln_train's, and swin_block_train's
+// first half): its recomputed and gradient rows, d(mb) in f32 and its three
+// row-split sums
+struct AttnBwd {
+  bf16 *h1, *qkv, *o, *dproj, *dout, *dqkv, *dh1;
+  float *mu, *rstd, *dmb;
+  Sum ln, wqkv, wproj;
 };
 
-Bwd bwd_layout(Arena& a, const Dims& d) {
+AttnBwd attn_bwd_layout(Arena& a, const Dims& d) {
   const long long rows = d.rows();
   const size_t rc = rows * d.C;
   const int C = d.C;
-  Bwd r;
+  AttnBwd r;
   r.h1 = a.take<bf16>(rc);
   r.qkv = a.take<bf16>(3 * rc);
   r.o = a.take<bf16>(rc);
-  r.x2 = a.take<bf16>(rc);
-  r.dx2 = a.take<bf16>(rc);
   r.dproj = a.take<bf16>(rc);
   r.dout = a.take<bf16>(rc);
   r.dqkv = a.take<bf16>(3 * rc);
   r.dh1 = a.take<bf16>(rc);
-  r.mu1 = a.take<float>(rows);
-  r.rstd1 = a.take<float>(rows);
+  r.mu = a.take<float>(rows);
+  r.rstd = a.take<float>(rows);
   r.dmb = a.take<float>((size_t)d.P * d.H * d.N * d.N);
-  r.mlp = mlp_bwd_layout(a, rows, C, d.hidden);
-  r.ln1 = plan_sum(a, rows, 2LL * C, (C + 31) / 32);
+  r.ln = plan_sum(a, rows, 2LL * C, (C + 31) / 32);
   r.wqkv = plan_sum(a, rows, 3LL * C * C + 3 * C, tn_blocks(3 * C, C));
   r.wproj = plan_sum(a, rows, (long long)C * C + C, tn_blocks(C, C));
   return r;
 }
 
-bool bad_dims(const Dims& d) {
-  return d.R <= 0 || d.N <= 0 || d.C <= 0 || d.hidden <= 0 || d.H <= 0 || d.C % d.H ||
-         d.P <= 0 || d.R % d.P;
+struct Bwd {
+  AttnBwd attn;
+  bf16 *x2, *dx2;
+  MlpBwd mlp;
+};
+
+Bwd bwd_layout(Arena& a, const Dims& d) {
+  const size_t rc = d.rows() * d.C;
+  Bwd r;
+  r.attn = attn_bwd_layout(a, d);
+  r.x2 = a.take<bf16>(rc);
+  r.dx2 = a.take<bf16>(rc);
+  r.mlp = mlp_bwd_layout(a, d.rows(), d.C, d.hidden);
+  return r;
 }
+
+// the attention half's dimensions (hidden unused), then the whole block's
+bool bad_attn_dims(const Dims& d) {
+  return d.R <= 0 || d.N <= 0 || d.C <= 0 || d.H <= 0 || d.C % d.H || d.P <= 0 || d.R % d.P;
+}
+bool bad_dims(const Dims& d) { return bad_attn_dims(d) || d.hidden <= 0; }
 
 // o = attention(qkv, mb) on the packed (R*N, 3C) rows, as
 // cuda_lib.packed_window_attention launches it
@@ -200,6 +225,49 @@ int mlp_bwd(const void* x, const void* dy, const float* keep, int div, const voi
   return 0;
 }
 
+// The attention half's recompute from its input x: h1 = LN1(x) with its row
+// statistics, qkv = h1 Wqkv^T + bqkv (w: the block's weights, from kLn1G)
+int attn_recompute(const void* x, const void* const* w, const AttnBwd& r, const Dims& d,
+                   void* stream) {
+  const int rows = d.R * d.N, C = d.C;
+  TRY(mumpy_ln_rows(x, w[kLn1G], w[kLn1B], r.h1, r.mu, r.rstd, rows, C, 1, kBF16, stream));
+  return mumpy_gemm_sm90(r.h1, w[kWqkv], w[kBqkv], nullptr, nullptr, nullptr, r.qkv, nullptr,
+                         nullptr, rows, 3 * C, C, 1, 0, 1, 1, stream);
+}
+
+// The attention half's backward (attn_ln_train's) from its recompute in r
+// (attn_recompute, and o unless o_from_core) and the output gradient dproj =
+// a + keep * b per window (a may be null: #9 a = dy, b = dout; #8 a = null, b
+// = dx2): do = dproj Wproj; dqkv and d(mb) from the attention backward (with
+// o_from_core also o = T(P) V, which the projection's weight gradient reads);
+// dh1 = dqkv Wqkv; dx = b + LN1'(dh1); the LayerNorm, weight and bias sums
+// into r's row splits (or into dw with one split) and d(mb) in f32 into r.dmb,
+// which the caller's reduce_splits launch adds and casts.
+int attn_bwd(const void* x, const void* a, const void* b, const float* keep, const void* mb,
+             int mb_dtype, const int* s, const void* const* w, void* dx, void* const* dw,
+             const AttnBwd& r, const Dims& d, bool o_from_core, int rowsum, void* stream) {
+  const int rows = d.R * d.N, C = d.C, hd = C / d.H;
+  TRY(mumpy_scale_add_rows(a, b, keep, r.dproj, rows, C, d.N, kBF16, stream));
+  TRY(mumpy_gemm_sm90(r.dproj, w[kWproj], nullptr, nullptr, nullptr, nullptr, r.dout, nullptr,
+                      nullptr, rows, C, C, 0, 0, 1, 1, stream));
+  TRY(cudaMemsetAsync(r.dmb, 0, (size_t)d.P * d.H * d.N * d.N * sizeof(float),
+                      static_cast<cudaStream_t>(stream)));
+  const int chunks =
+      std::max(1, std::min(d.R / d.P, (kAttnBlocks + d.H * d.P - 1) / (d.H * d.P)));
+  TRY(mumpy_window_attention_bwd(r.qkv, r.dout, mb, r.dqkv, o_from_core ? r.o : nullptr, r.dmb,
+                                 d.R, d.N, d.H, hd, d.P, mb_dtype, s[0], s[1], s[2], s[3], chunks,
+                                 1.f / std::sqrt((float)hd), rowsum, kBF16, stream));
+  TRY(mumpy_gemm_sm90(r.dqkv, w[kWqkv], nullptr, nullptr, nullptr, nullptr, r.dh1, nullptr,
+                      nullptr, rows, C, 3 * C, 0, 0, 1, 1, stream));
+  TRY(mumpy_ln_bwd_rows(x, r.mu, r.rstd, w[kLn1G], r.dh1, b, dx, rows, C, kBF16, stream));
+  TRY(mumpy_col_sums(r.dh1, x, r.mu, r.rstd, r.ln.ws, dw[kLn1G], dw[kLn1B], rows, C, r.ln.per,
+                     kBF16, stream));
+  TRY(mumpy_gemm_sm90_tn(r.dqkv, r.h1, r.wqkv.ws, dw[kWqkv], dw[kBqkv], rows, 3 * C, C,
+                         r.wqkv.per, stream));
+  return mumpy_gemm_sm90_tn(r.dproj, r.o, r.wproj.ws, dw[kWproj], dw[kBproj], rows, C, C,
+                            r.wproj.per, stream);
+}
+
 // The workspaces one reduce_splits launch adds, in split order: each with
 // its two outputs (a weight and its bias, or a LayerNorm's scale and bias)
 struct Reduce {
@@ -223,6 +291,14 @@ struct Reduce {
     add(m.ln, C, dw[0], dw[1]);
     add(m.w1, (long long)hidden * C, dw[2], dw[3]);
     add(m.w2, (long long)C * hidden, dw[4], dw[5]);
+  }
+  // the attention half's sums and d(mb), cast to mb's dtype
+  void add_attn(const AttnBwd& r, const Dims& d, void* const* dw, void* dmb, int mb_dtype) {
+    const int C = d.C;
+    add(r.ln, C, dw[kLn1G], dw[kLn1B]);
+    add(r.wqkv, 3LL * C * C, dw[kWqkv], dw[kBqkv]);
+    add(r.wproj, (long long)C * C, dw[kWproj], dw[kBproj]);
+    add(r.dmb, 1, (long long)d.P * d.H * d.N * d.N, 0, mb_dtype, dmb, nullptr);
   }
   int launch(void* stream) const {
     return n == 0 ? 0
@@ -280,50 +356,96 @@ extern "C" int mumpy_swin_block_train_bwd(const void* x, const void* dy, const v
   char* base = aligned256(scratch);
   Arena a{base, 0};
   const Bwd r = bwd_layout(a, d);
-  const int rows = R * N, hd = C / H, s[4] = {mb_s0, mb_s1, mb_s2, mb_s3};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows = R * N, s[4] = {mb_s0, mb_s1, mb_s2, mb_s3};
 
   // recompute the attention half from x, and x2 (keep1 as the row scale)
-  TRY(mumpy_ln_rows(x, w[kLn1G], w[kLn1B], r.h1, r.mu1, r.rstd1, rows, C, 1, kBF16, stream));
-  TRY(mumpy_gemm_sm90(r.h1, w[kWqkv], w[kBqkv], nullptr, nullptr, nullptr, r.qkv, nullptr,
-                      nullptr, rows, 3 * C, C, 1, 0, 1, 1, stream));
-  TRY(attention(r.qkv, r.o, d, mb, mb_dtype, s, stream));
-  TRY(mumpy_gemm_sm90(r.o, w[kWproj], w[kBproj], x, keep1, nullptr, nullptr, r.x2, nullptr,
+  TRY(attn_recompute(x, w, r.attn, d, stream));
+  TRY(attention(r.attn.qkv, r.attn.o, d, mb, mb_dtype, s, stream));
+  TRY(mumpy_gemm_sm90(r.attn.o, w[kWproj], w[kBproj], x, keep1, nullptr, nullptr, r.x2, nullptr,
                       rows, C, C, 1, 0, N, row_scale_on, stream));
 
   // the MLP half (ln_mlp_train's backward with keep2 per window)
   TRY(mlp_bwd(r.x2, dy, keep2, N, w + kLn2G, r.dx2, dw + kLn2G, r.mlp, rows, C, hidden,
               gelu_grad, stream));
 
-  // the attention half (attn_ln_train.py:attn_bwd_from with keep1 per window)
-  TRY(mumpy_scale_add_rows(nullptr, r.dx2, keep1, r.dproj, rows, C, N, kBF16, stream));
-  TRY(mumpy_gemm_sm90(r.dproj, w[kWproj], nullptr, nullptr, nullptr, nullptr, r.dout, nullptr,
-                      nullptr, rows, C, C, 0, 0, 1, 1, stream));
-  const size_t n_mb = (size_t)P * H * N * N;
-  TRY(cudaMemsetAsync(r.dmb, 0, n_mb * sizeof(float), st));
-  const int chunks = std::max(1, std::min(R / P, (kAttnBlocks + H * P - 1) / (H * P)));
-  TRY(mumpy_window_attention_bwd(r.qkv, r.dout, mb, r.dqkv, r.dmb, R, N, H, hd, P, mb_dtype,
-                                 s[0], s[1], s[2], s[3], chunks, 1.f / std::sqrt((float)hd),
-                                 rowsum, kBF16, stream));
-  TRY(mumpy_gemm_sm90(r.dqkv, w[kWqkv], nullptr, nullptr, nullptr, nullptr, r.dh1, nullptr,
-                      nullptr, rows, C, 3 * C, 0, 0, 1, 1, stream));
-  TRY(mumpy_ln_bwd_rows(x, r.mu1, r.rstd1, w[kLn1G], r.dh1, r.dx2, dx, rows, C, kBF16, stream));
-  TRY(mumpy_col_sums(r.dh1, x, r.mu1, r.rstd1, r.ln1.ws, dw[kLn1G], dw[kLn1B], rows, C,
-                     r.ln1.per, kBF16, stream));
-  TRY(mumpy_gemm_sm90_tn(r.dqkv, r.h1, r.wqkv.ws, dw[kWqkv], dw[kBqkv], rows, 3 * C, C,
-                         r.wqkv.per, stream));
-  TRY(mumpy_gemm_sm90_tn(r.dproj, r.o, r.wproj.ws, dw[kWproj], dw[kBproj], rows, C, C,
-                         r.wproj.per, stream));
+  // the attention half (attn_ln_train's backward with dproj = keep1 * dx2)
+  TRY(attn_bwd(x, nullptr, r.dx2, keep1, mb, mb_dtype, s, w, dx, dw, r.attn, d, false, rowsum,
+               stream));
 
   // one launch: every split sum in split order, and d(mb) cast to mb's dtype
   Reduce red{base};
   red.add_mlp(r.mlp, C, hidden, dw + kLn2G);
-  red.add(r.ln1, C, dw[kLn1G], dw[kLn1B]);
-  red.add(r.wqkv, 3LL * C * C, dw[kWqkv], dw[kBqkv]);
-  red.add(r.wproj, (long long)C * C, dw[kWproj], dw[kBproj]);
-  red.add(r.dmb, 1, (long long)n_mb, 0, mb_dtype, dmb, nullptr);
-  TRY(red.launch(stream));
-  return 0;
+  red.add_attn(r.attn, d, dw, dmb, mb_dtype);
+  return red.launch(stream);
+}
+
+// ---- attn_ln_train (#9): (y, x + keep * y), y = proj(MSA(LN x) + mb), bf16 ----
+
+extern "C" long long mumpy_attn_ln_train_scratch(int R, int N, int C, int H, int P,
+                                                 int backward) {
+  const Dims d{R, N, C, 0, H, P};
+  if (bad_attn_dims(d)) return -1;
+  Arena a{nullptr, 0};
+  if (backward) {
+    attn_bwd_layout(a, d);
+  } else {
+    const size_t rc = d.rows() * C;
+    a.take<bf16>(rc);      // h
+    a.take<bf16>(3 * rc);  // qkv
+    a.take<bf16>(rc);      // o
+    a.take<float>(2 * (size_t)d.rows());  // mu, rstd
+  }
+  return (long long)a.used + 256;
+}
+
+// The forward: h = LN(x) (one row pass), qkv = h Wqkv^T + bqkv, o =
+// attention(qkv, mb), then the projection's epilogue writes y = T(o Wproj^T +
+// bproj) and out = T(x + keep[window] * (o Wproj^T + bproj)); w holds the six
+// weights (ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj) as torch stores them.
+extern "C" int mumpy_attn_ln_train_fwd(const void* x, const void* mb, int mb_dtype, int mb_s0,
+                                       int mb_s1, int mb_s2, int mb_s3, const float* keep,
+                                       const void* const* w, void* y, void* out, void* scratch,
+                                       int R, int N, int C, int H, int P, void* stream) {
+  const Dims d{R, N, C, 0, H, P};
+  if (bad_attn_dims(d) || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  Arena a{aligned256(scratch), 0};
+  const size_t rc = d.rows() * C;
+  bf16* h = a.take<bf16>(rc);
+  bf16* qkv = a.take<bf16>(3 * rc);
+  bf16* o = a.take<bf16>(rc);
+  float* mu = a.take<float>(d.rows());
+  float* rstd = a.take<float>(d.rows());
+  const int rows = R * N, s[4] = {mb_s0, mb_s1, mb_s2, mb_s3};
+  TRY(mumpy_ln_rows(x, w[kLn1G], w[kLn1B], h, mu, rstd, rows, C, 1, kBF16, stream));
+  TRY(mumpy_gemm_sm90(h, w[kWqkv], w[kBqkv], nullptr, nullptr, nullptr, qkv, nullptr, nullptr,
+                      rows, 3 * C, C, 1, 0, 1, 1, stream));
+  TRY(attention(qkv, o, d, mb, mb_dtype, s, stream));
+  return mumpy_gemm_sm90(o, w[kWproj], w[kBproj], x, keep, nullptr, y, out, nullptr, rows, C, C,
+                         1, 0, N, 1, stream);
+}
+
+// The backward from (dy, dout) (dy may be null), recomputing h1 and qkv
+// (attn_recompute) with o from the backward's core (attn_bwd), then one
+// reduce_splits launch; the gradients of x, mb (its dtype) and the six
+// weights.
+extern "C" int mumpy_attn_ln_train_bwd(const void* x, const void* dy, const void* dout,
+                                       const void* mb, int mb_dtype, int mb_s0, int mb_s1,
+                                       int mb_s2, int mb_s3, const float* keep,
+                                       const void* const* w, void* dx, void* dmb, void* const* dw,
+                                       void* scratch, int R, int N, int C, int H, int P,
+                                       int rowsum, void* stream) {
+  const Dims d{R, N, C, 0, H, P};
+  if (bad_attn_dims(d) || scratch == nullptr || dout == nullptr)
+    return (int)cudaErrorInvalidValue;
+  char* base = aligned256(scratch);
+  Arena a{base, 0};
+  const AttnBwd r = attn_bwd_layout(a, d);
+  const int s[4] = {mb_s0, mb_s1, mb_s2, mb_s3};
+  TRY(attn_recompute(x, w, r, d, stream));
+  TRY(attn_bwd(x, dy, dout, keep, mb, mb_dtype, s, w, dx, dw, r, d, true, rowsum, stream));
+  Reduce red{base};
+  red.add_attn(r, d, dw, dmb, mb_dtype);
+  return red.launch(stream);
 }
 
 // ---- ln_mlp_train (#10): x + keep * fc2(gelu(fc1(LN x))), bf16 ----

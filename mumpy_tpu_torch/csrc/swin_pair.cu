@@ -15,15 +15,23 @@
 //   qkv = h[a(m)] Wqkv + bqkv              (gemm_sm90.cu, rows through a)
 //   o = attention(qkv, mb)                 (window_attention.cu)
 //   x2[c(m)] = x[c(m)] + (o Wproj + bproj) (rows scattered back through c = a)
-//   h = LN2(x2); g = gelu(h W1 + b1); y = x2 + (g W2 + b2)
+//   y = x2 + fc2(gelu(fc1(LN2(x2))))       (at C <= 256, a multiple of 16:
+//                                           mlp_sm90.cu, one launch with the
+//                                           hidden on chip; else ln_rows and
+//                                           two gemm_sm90.cu products, h =
+//                                           LN2(x2), g = gelu(h W1 + b1), y =
+//                                           x2 + (g W2 + b2))
 // LayerNorm is row-local, so it runs on the unshifted rows and the qkv
 // product gathers the normalised ones.
 // The first block of a call takes the shift's row map (period map_len) as
 // a and c, so it runs on the shifted windows while its input and output stay
-// in the unshifted layout; the second takes none.  Seven launches a block
-// from one host call (from Python, five a block cost tens of microseconds of
-// host time each).  ln_stats_on = 0 is the planted fault of the checks: every
-// LayerNorm row pass with mu = 0, rstd = 1.
+// in the unshifted layout; the second takes none.  Five or seven launches a
+// block from one host call (from Python, five a block cost tens of
+// microseconds of host time each).  ln_stats_on = 0 is a planted fault of the
+// checks: every LayerNorm with mu = 0, rstd = 1; gelu_on = 0 another, GELU
+// replaced by the identity in the fused MLP.  #1's blocks at stages 0 and 1
+// (C 96-256) take the fused MLP; #2's pairs (C 384 and 512) and #1's stages 2
+// and 3 the two products.
 #include <cmath>
 #include <cstddef>
 
@@ -40,13 +48,16 @@ struct Scratch {
   float *mu, *rstd;
 };
 
+// may the MLP half run on the fused kernel (mlp_sm90.cu)?
+bool fused_mlp(int C, int hidden) { return C <= 256 && C % 16 == 0 && hidden % 8 == 0; }
+
 Scratch layout(Arena& a, long long rows, int C, int hidden, int blocks) {
   Scratch r;
   r.h = a.take<bf16>(rows * C);
   r.qkv = a.take<bf16>(3 * rows * C);
   r.o = a.take<bf16>(rows * C);
   r.x2 = a.take<bf16>(rows * C);
-  r.g = a.take<bf16>(rows * hidden);
+  r.g = fused_mlp(C, hidden) ? nullptr : a.take<bf16>(rows * hidden);
   r.mid = blocks > 1 ? a.take<bf16>(rows * C) : nullptr;
   r.mu = a.take<float>(rows);
   r.rstd = a.take<float>(rows);
@@ -56,7 +67,7 @@ Scratch layout(Arena& a, long long rows, int C, int hidden, int blocks) {
 // One block, x -> y (R*N rows of C); mbd = (dtype, s0, s1, s2, s3, P) of mb
 int block(const void* x, const void* const* w, const void* mb, const int* mbd, const int* map,
           int map_len, void* y, const Scratch& r, int R, int N, int C, int hidden, int H,
-          int ln_stats_on, void* stream) {
+          int ln_stats_on, int gelu_on, void* stream) {
   const int rows = R * N, hd = C / H;
   TRY(mumpy_ln_rows(x, w[kLn1G], w[kLn1B], r.h, r.mu, r.rstd, rows, C, ln_stats_on, kBF16,
                     stream));
@@ -67,6 +78,9 @@ int block(const void* x, const void* const* w, const void* mb, const int* mbd, c
                              1.f / std::sqrt((float)hd), kBF16, stream));
   TRY(mumpy_gemm_rows(r.o, w[kWproj], w[kBproj], x, nullptr, nullptr, nullptr, r.x2, nullptr,
                       nullptr, map, map_len, rows, C, C, 0, 0, 1, 1, stream));
+  if (fused_mlp(C, hidden))
+    return mumpy_mlp_rows(r.x2, w[kLn2G], w[kLn2B], w[kW1], w[kB1], w[kW2], w[kB2], y, rows, C,
+                          hidden, ln_stats_on, gelu_on, stream);
   TRY(mumpy_ln_rows(r.x2, w[kLn2G], w[kLn2B], r.h, r.mu, r.rstd, rows, C, ln_stats_on, kBF16,
                     stream));
   TRY(mumpy_gemm_sm90(r.h, w[kW1], w[kB1], nullptr, nullptr, nullptr, r.g, nullptr, nullptr, rows,
@@ -92,7 +106,8 @@ extern "C" long long mumpy_swin_blocks_scratch(int R, int N, int C, int hidden, 
 extern "C" int mumpy_swin_blocks_fwd(const void* x, int blocks, const void* const* w,
                                      const void* const* mb, const int* mb_desc, const int* map,
                                      int map_len, void* y, void* scratch, int R, int N, int C,
-                                     int hidden, int H, int ln_stats_on, void* stream) {
+                                     int hidden, int H, int ln_stats_on, int gelu_on,
+                                     void* stream) {
   if (R <= 0 || N <= 0 || C <= 0 || hidden <= 0 || H <= 0 || C % H || blocks < 1 ||
       blocks > 2 || scratch == nullptr || (map != nullptr && map_len <= 0))
     return (int)cudaErrorInvalidValue;
@@ -102,7 +117,7 @@ extern "C" int mumpy_swin_blocks_fwd(const void* x, int blocks, const void* cons
   for (int b = 0; b < blocks; ++b) {
     void* out = b + 1 < blocks ? static_cast<void*>(r.mid) : y;
     TRY(block(in, w + kWeights * b, mb[b], mb_desc + 6 * b, b == 0 ? map : nullptr, map_len, out,
-              r, R, N, C, hidden, H, ln_stats_on, stream));
+              r, R, N, C, hidden, H, ln_stats_on, gelu_on, stream));
     in = out;
   }
   return 0;

@@ -10,7 +10,10 @@
 //   dQ  = dS K * scale,  dK = dS^T Q * scale,  dV = P^T dO
 //   dmb[p, h] += dS                               (f32, the mask+bias gradient)
 //
-// dQ, dK, dV are written into dqkv at the columns of q, k and v.  mb is the
+// dQ, dK, dV are written into dqkv at the columns of q, k and v; with o given
+// (non-null, (R*N, C) like dO) also the forward's head outputs O = T(P) V from
+// the P the backward forms anyway (the attention half's weight gradient reads
+// them, so its recompute runs no forward core).  mb is the
 // (P, H, N, N) additive term of the forward in f32 or bf16 (mb_dtype) with
 // element strides mb_s0..3; dmb is (P, H, N, N) f32, contiguous, and must be
 // zeroed by the caller.  A block
@@ -27,7 +30,7 @@
 // is rounded to T before dV = P^T dO and dS * scale before dQ and dK.  A
 // window holds N <= 64 tokens and hd <= 32, so q, k, v, dO, P and dS of one
 // head fit in shared memory.  bf16 at hd = 32 (every flagship head) runs the
-// five products on the tensor cores (window_attention_bwd_tc_kernel, below):
+// five products (six with O) on the tensor cores (window_attention_bwd_tc_kernel, below):
 // at N = 49 that work is bound by device-memory bytes (about 28 flops per
 // byte of qkv, dO, dqkv and mask+bias in bf16).  f32 and other head widths
 // run the SIMT kernel, where each warp owns whole query rows (lanes j and
@@ -47,7 +50,7 @@ inline size_t bwd_smem_floats(int N, int hd) {
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 window_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                            MaskBias mb, T* __restrict__ dqkv,
+                            MaskBias mb, T* __restrict__ dqkv, T* __restrict__ o,
                             float* __restrict__ dmb, int R, int N, int H, int hd, int P,
                             int wpb, float scale, int rowsum) {
   extern __shared__ float sm[];
@@ -116,6 +119,15 @@ window_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dou
     __syncthreads();
 
     T* out = dqkv + (size_t)r * N * ld + h * hd;
+    if (o != nullptr) {  // O = T(P) V: query row i per warp, column d per lane
+      for (int i = warp; i < N; i += kBwdWarps) {
+        for (int d = lane; d < hd; d += 32) {
+          float a = 0.f;
+          for (int k = 0; k < N; ++k) a = fmaf(ps[i * kPPitch + k], vs[k * hp + d], a);
+          o[((size_t)r * N + i) * C + h * hd + d] = from_f<T>(a);
+        }
+      }
+    }
     // dQ: query row i per warp, column d per lane
     for (int i = warp; i < N; i += kBwdWarps) {
       for (int d = lane; d < hd; d += 32) {
@@ -160,8 +172,8 @@ __global__ void __launch_bounds__(kBwdThreads)
 window_attention_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
                                const __nv_bfloat16* __restrict__ dout,
                                MaskBias mb, __nv_bfloat16* __restrict__ dqkv,
-                               float* __restrict__ dmb, int R, int N, int H, int P, int wpb,
-                               float scale, int rowsum) {
+                               __nv_bfloat16* __restrict__ o, float* __restrict__ dmb,
+                               int R, int N, int H, int P, int wpb, float scale, int rowsum) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   // buffers [2][q, k, v, dO][kTcTile], then T(P) and T(dS * scale) [kMaxN][kGPitch]
   __nv_bfloat16* bufs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -258,6 +270,23 @@ window_attention_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
           *reinterpret_cast<unsigned*>(out + (size_t)(i0 + g + 8) * ld + col) =
               pack_bf16x2(dq[jd][2], dq[jd][3]);
       }
+      if (o != nullptr) {  // O = T(P) V, as the forward core forms it
+        unsigned pa[4][4];
+        to_a_frags(pa, s, 1.f);
+        float acc[kTcHd / 8][4] = {};
+        times_tile(acc, pa, vs, lane);
+        __nv_bfloat16* ob = o + (size_t)(p + j * P) * N * C + h * kTcHd;
+#pragma unroll
+        for (int jd = 0; jd < kTcHd / 8; ++jd) {
+          const int col = 8 * jd + 2 * t;
+          if (i0 + g < N)
+            *reinterpret_cast<unsigned*>(ob + (size_t)(i0 + g) * C + col) =
+                pack_bf16x2(acc[jd][0], acc[jd][1]);
+          if (i0 + g + 8 < N)
+            *reinterpret_cast<unsigned*>(ob + (size_t)(i0 + g + 8) * C + col) =
+                pack_bf16x2(acc[jd][2], acc[jd][3]);
+        }
+      }
     }
     __syncthreads();  // T(P) and T(dS * scale) complete
     const int k0 = i0;  // key rows k0..k0+15
@@ -306,8 +335,8 @@ window_attention_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
 }  // namespace mumpy
 
 extern "C" int mumpy_window_attention_bwd(const void* qkv, const void* dout, const void* mb,
-                                          void* dqkv, float* dmb, int R, int N, int H, int hd,
-                                          int P, int mb_dtype, int mb_s0, int mb_s1,
+                                          void* dqkv, void* o, float* dmb, int R, int N,
+                                          int H, int hd, int P, int mb_dtype, int mb_s0, int mb_s1,
                                           int mb_s2, int mb_s3, int chunks, float scale,
                                           int rowsum, int dtype, void* stream) {
   using namespace mumpy;
@@ -321,28 +350,32 @@ extern "C" int mumpy_window_attention_bwd(const void* qkv, const void* dout, con
   const dim3 grid(H, P, (per_slot + wpb - 1) / wpb);
   const size_t smem = bwd_smem_floats(N, hd) * sizeof(float);
   cudaError_t err;
-  if (dtype == kBF16 && hd == kTcHd && aligned16(qkv) && aligned16(dout) && aligned16(dqkv)) {
+  if (dtype == kBF16 && hd == kTcHd && aligned16(qkv) && aligned16(dout) && aligned16(dqkv) &&
+      aligned16(o)) {
     const size_t tc_smem = (2 * 4 * kTcTile + 2 * kMaxN * kGPitch) * sizeof(__nv_bfloat16);
     err = cudaFuncSetAttribute(window_attention_bwd_tc_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc_smem);
     if (err != cudaSuccess) return (int)err;
     window_attention_bwd_tc_kernel<<<grid, kBwdThreads, tc_smem, s>>>(
         static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(dout), m,
-        static_cast<__nv_bfloat16*>(dqkv), dmb, R, N, H, P, wpb, scale, rowsum);
+        static_cast<__nv_bfloat16*>(dqkv), static_cast<__nv_bfloat16*>(o), dmb, R, N, H, P, wpb,
+        scale, rowsum);
   } else if (dtype == kBF16) {
     auto k = window_attention_bwd_kernel<__nv_bfloat16>;
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     k<<<grid, kBwdThreads, smem, s>>>(
         static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(dout), m,
-        static_cast<__nv_bfloat16*>(dqkv), dmb, R, N, H, hd, P, wpb, scale, rowsum);
+        static_cast<__nv_bfloat16*>(dqkv), static_cast<__nv_bfloat16*>(o), dmb, R, N, H, hd, P,
+        wpb, scale, rowsum);
   } else {
     auto k = window_attention_bwd_kernel<float>;
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     k<<<grid, kBwdThreads, smem, s>>>(
         static_cast<const float*>(qkv), static_cast<const float*>(dout), m,
-        static_cast<float*>(dqkv), dmb, R, N, H, hd, P, wpb, scale, rowsum);
+        static_cast<float*>(dqkv), static_cast<float*>(o), dmb, R, N, H, hd, P, wpb, scale,
+        rowsum);
   }
   return (int)cudaGetLastError();
 }

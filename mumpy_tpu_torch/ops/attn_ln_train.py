@@ -12,32 +12,38 @@ forward kernel ``_fwd_kernel`` and its backward kernel ``_bwd_kernel``, which
 recomputes the forward from ``x`` and spills h1, dqkv, o and dproj for the
 weight-gradient products.  The port keeps that contract:
 
-* forward, three launches, those of ``attn_ln``: the LN + qkv GEMM, the
-  window-attention core, and the projection GEMM whose epilogue writes ``y``
-  and ``x + keep[r] * y`` (the GEMM's row-scale epilogue);
-* backward, eight launches, recomputing from ``x``: the LayerNorm rows
-  (h1 and the row statistics, ``csrc/train_rows.cu``), the qkv GEMM, the
-  attention core again (o), ``dproj = dy + keep * dout``, ``do = dproj
-  Wproj^T``, the attention backward (``csrc/window_attention_bwd.cu``: dqkv
-  and the mask+bias gradient, summed over windows), ``dh1 = dqkv Wqkv^T``,
-  and the LayerNorm backward with the residual's ``dout`` added; then the
-  weight and bias gradients of qkv and of the projection and the LayerNorm
-  scale and bias gradients (row-split sums and their reduction,
-  ``csrc/wgrad.cu``), which the JAX package sums in XLA outside its kernel.
-  The backward is two steps, :func:`attn_recompute` and
-  :func:`attn_bwd_from`, so that ``swin_block_train`` can recompute once and
-  reuse the second.  Their products run on ``cuda_lib.train_gemm``: in bf16
-  the wgmma GEMM of ``csrc/gemm_sm90.cu`` (its TN form for the weight
-  gradients).  The forward's run on ``cuda_lib.gemm``: in bf16 the same
-  persistent GEMM with its LayerNorm prologue, in f32 ``csrc/gemm.cu``.
+* forward, four launches: the LayerNorm rows, the qkv product, the
+  window-attention core, and the projection whose epilogue writes ``y`` and
+  ``x + keep[r] * y`` (the GEMM's row-scale epilogue);
+* backward, recomputing from ``x`` only the LayerNorm rows (h1 and the row
+  statistics, ``csrc/train_rows.cu``) and the qkv product; then ``dproj = dy
+  + keep * dout``, ``do = dproj Wproj^T``, the attention backward
+  (``csrc/window_attention_bwd.cu``: dqkv, the mask+bias gradient summed over
+  windows, and the head outputs o = T(P) V from the P it forms anyway, which
+  only the projection's weight gradient reads, so no forward core runs
+  again), ``dh1 = dqkv Wqkv^T``, and the LayerNorm backward with the
+  residual's ``dout`` added; then the weight and bias gradients of qkv and of
+  the projection and the LayerNorm scale and bias gradients (row-split sums
+  and their reduction, ``csrc/wgrad.cu``), which the JAX package sums in XLA
+  outside its kernel.
 
-The products with transposed weights read the torch Linear weights as they
-are stored, (out, in): the backward's ``do`` and ``dh1`` GEMMs need exactly
-that layout.  Only the forward's products need (in, out) copies; the
-``Function`` builds them once per call and keeps them for the backward's
-recompute.  The (P, H, N, N) mask+bias goes to the attention core as it is,
-and its gradient leaves the ``Function`` in its dtype, so autograd carries it
-through ``rel_pos_bias``'s gather into the relative-position table.
+In bf16 each direction is one call of ``csrc/swin_block_train.cu``
+(``mumpy_attn_ln_train_fwd`` / ``_bwd``: a Python-composed sequence of some
+20 launches cost more host time than its kernels' device time), every product
+on the persistent wgmma GEMM of ``csrc/gemm_sm90.cu`` (its TN form for the
+weight gradients) reading the torch weights as stored, and the backward is
+the same function as ``swin_block_train``'s attention half (``attn_bwd``),
+which runs it with dproj = keep1 * dx2 and the o of its own recompute.  f32
+composes the same sequences here (:func:`forward_sequence`,
+:func:`backward_sequence`, also the CPU model of the bf16 calls) on
+``csrc/gemm.cu``'s SIMT GEMM with (in, out) copies of the weights, which the
+``Function`` builds once per call and keeps for the backward's recompute.
+The backward is two steps, :func:`attn_recompute` and :func:`attn_bwd_from`,
+so that ``swin_block_train`` can recompute once (with o, which its x2
+needs) and reuse the second.  The (P, H, N, N) mask+bias goes to the
+attention core as it is, and its gradient leaves the ``Function`` in its
+dtype, so autograd carries it through ``rel_pos_bias``'s gather into the
+relative-position table.
 
 On the card the products are bound by the tensor-core rate (bf16) or the FMA
 rate (f32 SIMT); the bf16 attention backward by bytes, the f32 one by issuing
@@ -50,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .ln_mlp_train import _operand
 
 __all__ = ["attn_ln_train", "attn_ln_train_plain", "attn_ln_weights"]
 
@@ -79,18 +86,22 @@ def attn_ln_train_plain(x, mb, p, keep):
     return y, x + keep.to(x.dtype)[:, None, None] * y
 
 
+_WEIGHTS = ("ln_g", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj")
+
+
 class _AttnLnTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads):
-        r, n, c = x.shape
-        wq_t, wp_t = w_qkv.t().contiguous(), w_proj.t().contiguous()
-        x2 = x.reshape(r * n, c)
-        o = _attention(x2, wq_t, b_qkv, mb, r, n, heads, ln=(ln_g, ln_b))[1]
-        y, out = cuda_lib.gemm(o, wp_t, b_proj, res=x2, want_out=True, row_scale=keep,
-                               scale_div=n)
+        weights = (ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj)
+        if x.dtype == torch.bfloat16:
+            wq_t = None
+            y, out = cuda_lib.attn_ln_train_fwd(x, mb, keep, weights, heads)
+        else:
+            wq_t = _operand(w_qkv, x.dtype)  # kept for the backward's recompute
+            y, out = forward_sequence(x, mb, keep, *weights, heads, wq_t)
         ctx.save_for_backward(x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t)
         ctx.heads = heads
-        return y.reshape(r, n, c), out.reshape(r, n, c)
+        return y, out
 
     @staticmethod
     def backward(ctx, dy, dout):
@@ -108,40 +119,83 @@ def _attention(x2, wq_t, b_qkv, mb, r, n, heads, ln=None, gemm=cuda_lib.gemm):
     return qkv, cuda_lib.packed_window_attention(qkv, mb, r=r, n=n, heads=heads)
 
 
-def launch_attn_ln_train_bwd(x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t, heads,
-                             dy, dout, rowsum=True):
-    """The backward's launches.  Returns the gradients of (x, mb, keep, ln_g,
-    ln_b, w_qkv, b_qkv, w_proj, b_proj); ``rowsum=False`` is the planted fault
-    of the checks (the softmax backward without its rowsum term)."""
+def forward_sequence(x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj, heads, wq_t=None):
+    """The forward's launches, composed here: the f32 path, and the CPU model
+    of the bf16 call (``mumpy_attn_ln_train_fwd``).  ``wq_t`` is qkv's (in,
+    out) operand (None: from ``w_qkv``).  Returns ``(y, out)``."""
     r, n, c = x.shape
     x2 = x.reshape(r * n, c)
-    dy2 = None if dy is None else dy.reshape(r * n, c).contiguous()
-    dout2 = (torch.zeros_like(x2) if dout is None else dout).reshape(r * n, c).contiguous()
-    rec = attn_recompute(x2, ln_g, ln_b, wq_t, b_qkv, mb, r, n, heads)
-    return attn_bwd_from(x2, rec, mb, keep, ln_g, w_qkv, w_proj, dy2, dout2, rowsum)
+    wq_t = _operand(w_qkv, x.dtype) if wq_t is None else wq_t
+    o = _attention(x2, wq_t, b_qkv, mb, r, n, heads, ln=(ln_g, ln_b),
+                   gemm=cuda_lib.train_gemm)[1]
+    y, out = cuda_lib.train_gemm(o, _operand(w_proj, x.dtype), b_proj, res=x2, want_out=True,
+                                 row_scale=keep, scale_div=n)
+    return y.reshape(r, n, c), out.reshape(r, n, c)
 
 
-def attn_recompute(x2, ln_g, ln_b, wq_t, b_qkv, mb, r, n, heads):
+def launch_attn_ln_train_bwd(x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t, heads,
+                             dy, dout, rowsum=True):
+    """The backward's launches: in bf16 one call of csrc/swin_block_train.cu
+    (which reads the weights as stored; ``wq_t``, qkv's (in, out) operand,
+    serves f32 and may be None), in f32 :func:`backward_sequence`.  Returns
+    the gradients of (x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj);
+    ``rowsum=False`` is the planted fault of the checks (the softmax backward
+    without its rowsum term)."""
+    dy = None if dy is None else dy.contiguous()
+    dout = torch.zeros_like(x) if dout is None else dout.contiguous()
+    if x.dtype == torch.bfloat16:
+        dx, dmb, *grads = cuda_lib.attn_ln_train_bwd(
+            x, mb, keep, (ln_g, ln_b, w_qkv, b_qkv, w_proj, None), heads, dy, dout,
+            rowsum=rowsum)
+        return (dx, dmb, None, *grads)
+    return backward_sequence(x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t, heads, dy,
+                             dout, rowsum)
+
+
+def backward_sequence(x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t, heads, dy, dout,
+                      rowsum=True):
+    """The backward's launches, composed here: the f32 path, and the CPU
+    model of the bf16 call (``mumpy_attn_ln_train_bwd``): the recompute of
+    h1 and qkv, then :func:`attn_bwd_from` with o from the attention
+    backward.  Arguments and result as :func:`launch_attn_ln_train_bwd`."""
+    r, n, c = x.shape
+    x2 = x.reshape(r * n, c)
+    dy2 = None if dy is None else dy.reshape(r * n, c)
+    rec = attn_recompute(x2, ln_g, ln_b, _operand(w_qkv, x.dtype) if wq_t is None else wq_t,
+                         b_qkv, mb, r, n, heads, with_o=False)
+    return attn_bwd_from(x2, rec, mb, keep, ln_g, w_qkv, w_proj, dy2, dout.reshape(r * n, c),
+                         rowsum)
+
+
+def attn_recompute(x2, ln_g, ln_b, wq_t, b_qkv, mb, r, n, heads, with_o=True):
     """The backward's recompute from the (R*N, C) rows ``x2``: h1 = LN(x2)
-    and its f32 row statistics, the packed qkv and the head outputs o."""
+    and its f32 row statistics, the packed qkv and, ``with_o``, the head
+    outputs o from a forward attention core (else None: the attention
+    backward forms them)."""
     h1, mu, rstd = cuda_lib.ln_rows(x2, ln_g, ln_b)
-    qkv, o = _attention(h1, wq_t, b_qkv, mb, r, n, heads, gemm=cuda_lib.train_gemm)
+    if with_o:
+        qkv, o = _attention(h1, wq_t, b_qkv, mb, r, n, heads, gemm=cuda_lib.train_gemm)
+    else:
+        (qkv, _), o = cuda_lib.train_gemm(h1, wq_t, b_qkv), None
     return h1, mu, rstd, qkv, o
 
 
 def attn_bwd_from(x2, rec, mb, keep, ln_g, w_qkv, w_proj, dy, dout, rowsum=True):
     """The attention half's backward from its recompute ``rec``
-    (:func:`attn_recompute`) and the (R*N, C) cotangents of ``y`` (``dy``,
-    may be None) and of ``out = x + keep * y`` (``dout``).  Returns the
-    gradients of (x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj)."""
+    (:func:`attn_recompute`; with its o None the attention backward forms o)
+    and the (R*N, C) cotangents of ``y`` (``dy``, may be None) and of ``out =
+    x + keep * y`` (``dout``).  Returns the gradients of (x, mb, keep, ln_g,
+    ln_b, w_qkv, b_qkv, w_proj, b_proj)."""
     h1, mu, rstd, qkv, o = rec
     rows, c = x2.shape
     heads, n = mb.shape[1], mb.shape[2]
     hd = c // heads
     dproj = cuda_lib.scale_add_rows(dy, dout, keep, div=n)
     do, _ = cuda_lib.train_gemm(dproj, w_proj)
-    dqkv, dmb = cuda_lib.window_attention_bwd(qkv, do, mb, r=rows // n, n=n, heads=heads,
-                                              hd=hd, scale=hd**-0.5, rowsum=rowsum)
+    dqkv, dmb, *o_core = cuda_lib.window_attention_bwd(
+        qkv, do, mb, r=rows // n, n=n, heads=heads, hd=hd, scale=hd**-0.5, rowsum=rowsum,
+        want_o=o is None)
+    o = o_core[0] if o is None else o
     dh1, _ = cuda_lib.train_gemm(dqkv, w_qkv)
     dx = cuda_lib.ln_bwd_rows(x2, mu, rstd, ln_g, dh1, dres=dout)
     return (dx.reshape(rows // n, n, c), dmb.to(mb.dtype), None,

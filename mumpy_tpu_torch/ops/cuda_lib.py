@@ -46,7 +46,7 @@ _SIGNATURES = {
     "mumpy_window_attention": [_P] * 5 + [_I] * 15 + [_F, _I, _P],
     "mumpy_cva_sample": [_P] * 4 + [_I] * 7 + [_P],
     "mumpy_vit3_attention": [_P] * 2 + [_I] * 3 + [_F, _I, _P],
-    "mumpy_window_attention_bwd": [_P] * 5 + [_I] * 11 + [_F, _I, _I, _P],
+    "mumpy_window_attention_bwd": [_P] * 6 + [_I] * 11 + [_F, _I, _I, _P],
     "mumpy_ln_rows": [_P] * 6 + [_I] * 4 + [_P],
     "mumpy_swin_block_train_scratch": [_I] * 7,
     "mumpy_swin_block_train_fwd": [_P] * 2 + [_I] * 5 + [_P] * 5 + [_I] * 6 + [_P],
@@ -54,13 +54,17 @@ _SIGNATURES = {
     "mumpy_ln_bwd_rows": [_P] * 7 + [_I] * 3 + [_P],
     "mumpy_scale_add_rows": [_P] * 4 + [_I] * 4 + [_P],
     "mumpy_swin_blocks_scratch": [_I] * 5,
-    "mumpy_swin_blocks_fwd": [_P, _I, _P, _P, _P, _P, _I, _P, _P] + [_I] * 6 + [_P],
+    "mumpy_swin_blocks_fwd": [_P, _I, _P, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
+    "mumpy_mlp_rows": [_P] * 8 + [_I] * 5 + [_P],
+    "mumpy_attn_ln_train_scratch": [_I] * 6,
+    "mumpy_attn_ln_train_fwd": [_P] * 2 + [_I] * 5 + [_P] * 5 + [_I] * 5 + [_P],
+    "mumpy_attn_ln_train_bwd": [_P] * 4 + [_I] * 5 + [_P] * 6 + [_I] * 6 + [_P],
     "mumpy_ln_mlp_train_scratch": [_I] * 4,
     "mumpy_ln_mlp_train_fwd": [_P] * 5 + [_I] * 4 + [_P],
     "mumpy_ln_mlp_train_bwd": [_P] * 7 + [_I] * 5 + [_P],
 }
 _LONG_RESULTS = ("mumpy_swin_block_train_scratch", "mumpy_swin_blocks_scratch",
-                 "mumpy_ln_mlp_train_scratch")
+                 "mumpy_ln_mlp_train_scratch", "mumpy_attn_ln_train_scratch")
 
 
 def _nvcc() -> str:
@@ -420,12 +424,14 @@ def vit3_attention(qkv, *, heads):
     return o
 
 
-def window_attention_bwd(qkv, do, mb, *, r, n, heads, hd, scale, rowsum=True):
+def window_attention_bwd(qkv, do, mb, *, r, n, heads, hd, scale, rowsum=True, want_o=False):
     """Launch the window-attention backward (csrc/window_attention_bwd.cu) on
     the packed (R*N, 3C) ``qkv`` of the forward, the head-output gradient
     ``do`` (R*N, C) and the forward's (P, H, N, N) mask+bias (f32 or bf16,
     any strides).
-    Returns dqkv (R*N, 3C) and the mask+bias gradient (P, H, N, N) f32."""
+    Returns dqkv (R*N, 3C) and the mask+bias gradient (P, H, N, N) f32, and
+    with ``want_o`` also the forward's head outputs o (R*N, C), formed from
+    the backward's own softmax."""
     c = heads * hd
     if n > 64 or hd > 32:
         raise ValueError(f"window attention takes n <= 64 and hd <= 32, got n={n} hd={hd}")
@@ -433,14 +439,16 @@ def window_attention_bwd(qkv, do, mb, *, r, n, heads, hd, scale, rowsum=True):
     require(do, "d(head outputs)", qkv, shape=(r * n, c))
     p = _mask_period(mb, qkv, r, n, heads)
     dqkv = torch.empty_like(qkv)
+    o = torch.empty_like(do) if want_o else None
     dmb = torch.zeros((p, heads, n, n), device=qkv.device, dtype=torch.float32)
     # about 8 blocks per SM of an H100 (132 SMs), each summing its windows' dS
     chunks = max(1, min(r // p, -(-1056 // (heads * p))))
-    check(lib().mumpy_window_attention_bwd(ptr(qkv), ptr(do), ptr(mb), ptr(dqkv), ptr(dmb),
-                                           r, n, heads, hd, p, dtype_code(mb), *mb.stride(),
-                                           chunks, scale, int(rowsum), dtype_code(qkv),
-                                           stream_of(qkv)), "window_attention_bwd")
-    return dqkv, dmb
+    check(lib().mumpy_window_attention_bwd(ptr(qkv), ptr(do), ptr(mb), ptr(dqkv), ptr(o),
+                                           ptr(dmb), r, n, heads, hd, p, dtype_code(mb),
+                                           *mb.stride(), chunks, scale, int(rowsum),
+                                           dtype_code(qkv), stream_of(qkv)),
+          "window_attention_bwd")
+    return (dqkv, dmb, o) if want_o else (dqkv, dmb)
 
 
 def ln_rows(x, g, b, stats_on=True):
@@ -657,14 +665,16 @@ _SERVING_BLOCK = ("ln_g", "ln_b", "w_qkv", "b_qkv", "w_proj", "b_proj")  # attn,
 _SERVING_MLP = ("ln_g", "ln_b", "w1", "b1", "w2", "b2")
 
 
-def swin_blocks_fwd(x, blocks, row_map=None, ln_stats_on=True):
+def swin_blocks_fwd(x, blocks, row_map=None, ln_stats_on=True, gelu_on=True):
     """bf16: one or two serving Swin blocks in turn, launched in one call
-    (csrc/swin_pair.cu).  ``x`` (R, N, C); ``blocks`` the blocks'
-    ``swin_block`` operands (weights (in, out), the (P, H, N, N) mask+bias);
-    ``row_map`` (int32, the period of one image) the first block's row map,
-    as :func:`gemm`'s ``a_map`` for its qkv product and ``c_map`` for its
-    projection.  ``ln_stats_on=False`` plants the checks' fault (every
-    LayerNorm with mean 0 and rstd 1).  Returns y (R, N, C)."""
+    (csrc/swin_pair.cu; a block's MLP half on :func:`mlp_rows` where
+    :func:`fused_mlp` takes its widths).  ``x`` (R, N, C); ``blocks`` the
+    blocks' ``swin_block`` operands (weights (in, out), the (P, H, N, N)
+    mask+bias); ``row_map`` (int32, the period of one image) the first
+    block's row map, as :func:`gemm`'s ``a_map`` for its qkv product and
+    ``c_map`` for its projection.  ``ln_stats_on=False`` and
+    ``gelu_on=False`` plant the checks' faults (every LayerNorm with mean 0
+    and rstd 1; the fused MLP without its GELU).  Returns y (R, N, C)."""
     r, n, c = x.shape
     require(x, "x", x, dtype=torch.bfloat16)
     weights, masks, desc = [], [], []
@@ -699,9 +709,102 @@ def swin_blocks_fwd(x, blocks, row_map=None, ln_stats_on=True):
         x.data_ptr(), len(blocks), (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights)),
         (ctypes.c_void_p * len(masks))(*(mb.data_ptr() for mb in masks)),
         (ctypes.c_int * len(desc))(*desc), ptr(row_map), map_len, y.data_ptr(),
-        scratch.data_ptr(), r, n, c, hidden, heads, int(ln_stats_on), stream_of(x)),
-        "swin_blocks_fwd")
+        scratch.data_ptr(), r, n, c, hidden, heads, int(ln_stats_on), int(gelu_on),
+        stream_of(x)), "swin_blocks_fwd")
     return y
+
+
+def fused_mlp(c, hidden):
+    """Whether a serving block's bf16 MLP half of width ``c`` runs on the
+    fused kernel (csrc/mlp_sm90.cu; csrc/swin_pair.cu's ``fused_mlp``)."""
+    return c <= 256 and c % 16 == 0 and hidden % 8 == 0
+
+
+def mlp_rows(x, ops, ln_stats_on=True, gelu_on=True):
+    """bf16: the fused MLP half of a serving block (csrc/mlp_sm90.cu), ``x +
+    fc2(gelu(fc1(LN x)))`` on ``x`` (M, C) with ``ops`` the ``ln_mlp``
+    operands (weights (in, out)), the 4C hidden never in device memory.
+    ``ln_stats_on=False`` and ``gelu_on=False`` plant the checks' faults."""
+    m, c = x.shape
+    require(x, "x", x, dtype=torch.bfloat16)
+    hidden = ops["w1"].shape[1]
+    for k, shape in (("ln_g", (c,)), ("ln_b", (c,)), ("w1", (c, hidden)), ("b1", (hidden,)),
+                     ("w2", (hidden, c)), ("b2", (c,))):
+        require(ops[k], k, x, shape=shape)
+    if not fused_mlp(c, hidden):
+        raise ValueError(f"the fused MLP takes C <= 256, a multiple of 16, and a hidden width "
+                         f"that is a multiple of 8; got C={c} hidden={hidden}")
+    y = torch.empty_like(x)
+    check(lib().mumpy_mlp_rows(ptr(x), *(ptr(ops[k]) for k in ("ln_g", "ln_b", "w1", "b1",
+                                                                "w2", "b2")),
+                               ptr(y), m, c, hidden, int(ln_stats_on), int(gelu_on),
+                               stream_of(x)), "mlp_rows")
+    return y
+
+
+_ATTN_WEIGHTS = 6  # ops/attn_ln_train.py:_WEIGHTS
+
+
+def _attn_operands(x, mb, keep, weights, heads):
+    """Check the bf16 operands of attn_ln_train's launch sequences; return
+    (R, N, C, P)."""
+    r, n, c = x.shape
+    require(x, "x", x, dtype=torch.bfloat16)
+    if len(weights) != _ATTN_WEIGHTS:
+        raise ValueError(f"attn_ln_train takes {_ATTN_WEIGHTS} weights (b_proj may be None), "
+                         f"got {len(weights)}")
+    for i, (w, shape) in enumerate(zip(weights, ((c,), (c,), (3 * c, c), (3 * c,), (c, c),
+                                                 (c,)))):
+        if w is not None or i < 5:
+            require(w, f"weight {i}", x, shape=shape)
+    require(keep, "keep", x, shape=(r,), dtype=torch.float32)
+    if n > 64 or c % heads or c // heads > 32 or c % 8:
+        raise ValueError(f"attn_ln_train's launch sequence takes n <= 64, a head width of at "
+                         f"most 32 and C a multiple of 8; got n={n} C={c} heads={heads}")
+    return r, n, c, _mask_period(mb, x, r, n, heads)
+
+
+def attn_ln_train_fwd(x, mb, keep, weights, heads):
+    """bf16: attn_ln_train's forward launches in one call
+    (csrc/swin_block_train.cu).  ``x`` (R, N, C), ``mb`` (P, H, N, N) f32 or
+    bf16 (any strides), ``keep`` (R,) f32 per window, ``weights`` (ln_g,
+    ln_b, w_qkv, b_qkv, w_proj, b_proj) as torch stores them, read in place.
+    Returns ``(y, x + keep * y)``."""
+    r, n, c, p = _attn_operands(x, mb, keep, weights, heads)
+    scratch = torch.empty(lib().mumpy_attn_ln_train_scratch(r, n, c, heads, p, 0),
+                          device=x.device, dtype=torch.uint8)
+    y, out = torch.empty_like(x), torch.empty_like(x)
+    check(lib().mumpy_attn_ln_train_fwd(
+        x.data_ptr(), mb.data_ptr(), dtype_code(mb), *mb.stride(), keep.data_ptr(),
+        (ctypes.c_void_p * _ATTN_WEIGHTS)(*(w.data_ptr() for w in weights)), y.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), r, n, c, heads, p, stream_of(x)),
+        "attn_ln_train_fwd")
+    return y, out
+
+
+def attn_ln_train_bwd(x, mb, keep, weights, heads, dy, dout, rowsum=True):
+    """bf16: attn_ln_train's backward launches in one call
+    (csrc/swin_block_train.cu), operands as :func:`attn_ln_train_fwd`'s (the
+    backward reads no b_proj: None will do) and the cotangents ``dy`` (may be
+    None) and ``dout`` of ``(y, out)``.
+    Returns dx, d(mb) (P, H, N, N) in mb's dtype and the six weights'
+    gradients; ``rowsum=False`` plants the checks' fault."""
+    r, n, c, p = _attn_operands(x, mb, keep, weights, heads)
+    for t, name in ((dy, "dy"), (dout, "dout")):
+        if t is not None:
+            require(t, name, x, shape=x.shape)
+    scratch = torch.empty(lib().mumpy_attn_ln_train_scratch(r, n, c, heads, p, 1),
+                          device=x.device, dtype=torch.uint8)
+    dx = torch.empty_like(x)
+    dmb = torch.empty((p, heads, n, n), device=x.device, dtype=mb.dtype)
+    grads = [torch.empty_like(w) for w in weights[:5]] + [torch.empty_like(weights[0])]
+    ptrs = ctypes.c_void_p * _ATTN_WEIGHTS
+    check(lib().mumpy_attn_ln_train_bwd(
+        x.data_ptr(), ptr(dy), dout.data_ptr(), mb.data_ptr(), dtype_code(mb), *mb.stride(),
+        keep.data_ptr(), ptrs(*(ptr(w) for w in weights)), dx.data_ptr(), dmb.data_ptr(),
+        ptrs(*(g.data_ptr() for g in grads)), scratch.data_ptr(), r, n, c, heads, p,
+        int(rowsum), stream_of(x)), "attn_ln_train_bwd")
+    return (dx, dmb, *grads)
 
 
 def _mlp_operands(x, keep, weights, div):

@@ -10,13 +10,18 @@ the port keeps the contract and not the tiling: the LayerNorm + qkv GEMM, the
 window-attention core, the projection GEMM with the residual, LN2 + fc1 +
 GELU, fc2 with the residual.  The additive term has period P windows (P = 1
 unshifted, nW shifted; the kernel reads window ``r % P``).  In bf16 the
-block is one call of ``csrc/swin_pair.cu`` (seven launches: the row
-statistics before each LayerNorm, the four products on the persistent wgmma
-GEMM of ``csrc/gemm_sm90.cu`` with the LayerNorm applied to its landed A
-tiles, the attention core of ``csrc/window_attention.cu``); f32 composes the
-same sequence here (:func:`block_sequence`, also the CPU model of the bf16
-call) on ``csrc/gemm.cu``'s SIMT GEMM.  Activations round-trip device memory
-between the launches (qkv 3C, head outputs C, hidden 4C per token).
+block is one call of ``csrc/swin_pair.cu``: the attention half in four
+launches (LN1 by ``ln_rows``, whose rows the qkv product on the persistent
+wgmma GEMM of ``csrc/gemm_sm90.cu`` reads, the attention core of
+``csrc/window_attention.cu``, the projection with the residual); the MLP
+half at C <= 256 (stages 0 and 1 of the flagship) in one launch of the fused
+MLP of ``csrc/mlp_sm90.cu``, which normalises each row tile once in shared
+memory and keeps the 4C hidden on chip, and at wider C (stages 2 and 3) in
+three (LN2, fc1 with GELU, fc2 with the residual).  f32 composes the two-
+product sequence here (:func:`block_sequence`, also the CPU model of the
+bf16 call) on ``csrc/gemm.cu``'s SIMT GEMM.  Other activations round-trip
+device memory between the launches (qkv 3C and head outputs C per token,
+and the 4C hidden on the three-launch MLP).
 """
 
 from __future__ import annotations
@@ -56,24 +61,30 @@ def swin_block(x, ops):
 
 def launch_swin_block(x, ops):
     """The kernel's launches: one call in bf16, :func:`block_sequence` in f32.
-    ``ops["ln_stats_on"] = False`` (bf16) plants the LayerNorm-statistics
-    fault of the checks."""
+    ``ops["ln_stats_on"] = False`` and ``ops["gelu_on"] = False`` (bf16)
+    plant the checks' faults: every LayerNorm with mean 0 and rstd 1; GELU
+    dropped from the fused MLP."""
     r, n, c = x.shape
     if x.dtype == torch.bfloat16:
-        return cuda_lib.swin_blocks_fwd(x, [ops], ln_stats_on=ops.get("ln_stats_on", True))
+        return cuda_lib.swin_blocks_fwd(x, [ops], ln_stats_on=ops.get("ln_stats_on", True),
+                                        gelu_on=ops.get("gelu_on", True))
     return block_sequence(x.reshape(r * n, c), ops, r, n).reshape(r, n, c)
 
 
-def block_sequence(x2, ops, r, n, row_map=None, ln_stats_on=True):
+def block_sequence(x2, ops, r, n, row_map=None, ln_stats_on=True, gelu_on=True):
     """One block's launches on its (R*N, C) rows, composed here: attn_ln's
-    (without y), then ln_mlp's.  With ``row_map`` the qkv GEMM gathers its
-    rows through it and the projection GEMM scatters its rows (and reads its
-    residual) through it, so the block runs on shifted windows while its
-    input and output stay unshifted (``swin_pair``)."""
+    (without y), then ln_mlp's, or in bf16 at the widths ``cuda_lib.
+    fused_mlp`` takes the fused MLP (``cuda_lib.mlp_rows``).  With
+    ``row_map`` the qkv GEMM gathers its rows through it and the projection
+    GEMM scatters its rows (and reads its residual) through it, so the block
+    runs on shifted windows while its input and output stay unshifted
+    (``swin_pair``)."""
     a, m = ops["attn"], ops["mlp"]
     o = attention_launches(x2, a, r, n, a_map=row_map, ln_stats_on=ln_stats_on)
     _, x2 = cuda_lib.gemm(o, a["w_proj"], a["b_proj"], res=x2, want_y=False,
                           want_out=True, c_map=row_map)
+    if x2.dtype == torch.bfloat16 and cuda_lib.fused_mlp(x2.shape[1], m["w1"].shape[1]):
+        return cuda_lib.mlp_rows(x2, m, ln_stats_on=ln_stats_on, gelu_on=gelu_on)
     h, _ = cuda_lib.gemm(x2, m["w1"], m["b1"], ln=(m["ln_g"], m["ln_b"]), gelu=True,
                          ln_stats_on=ln_stats_on)
     _, out = cuda_lib.gemm(h, m["w2"], m["b2"], res=x2, want_y=False, want_out=True)

@@ -21,16 +21,23 @@ import torch
 from mumpy_tpu_torch.ops import cuda_lib
 from mumpy_tpu_torch.ops import swin_block_train as sbt
 from mumpy_tpu_torch.ops.window import shifted_window_mask
-from torch_cases import (GRID, WIN, block_train_case, model_lib, rounded,  # noqa: F401
-                         run_with_grads)
+from torch_cases import (GRID, WIN, block_train_case, model_lib, record_calls,  # noqa: F401
+                         rounded, run_with_grads)
 from torch_cases import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shifted", [False, True])
-def test_swin_block_train_launches(model_lib, dtype, shifted):
+def test_swin_block_train_launches(model_lib, monkeypatch, dtype, shifted):
+    """The backward's recompute runs the forward attention core (its x2
+    needs o) and its attention backward forms no o of its own."""
+    calls = record_calls(monkeypatch, "mumpy_window_attention", "mumpy_window_attention_bwd")
     *args, cots = block_train_case(65, shifted)
     outs, grads = run_with_grads(sbt.launch_swin_block_train, args, cots, dtype)
+    # (name, whether it writes o): argument 4 of the backward core is o
+    assert [(name, name.endswith("_bwd") and a[4] is not None) for name, a in calls] == [
+        ("mumpy_window_attention", False), ("mumpy_window_attention", False),
+        ("mumpy_window_attention_bwd", False)]
     routs, rgrads = run_with_grads(sbt.swin_block_train_plain,
                                    [rounded(a, dtype) for a in args], cots)
     tol = 1e-5 if dtype == torch.float32 else 2e-2

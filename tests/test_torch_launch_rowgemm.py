@@ -35,7 +35,8 @@ def _recorded(monkeypatch):
     """The names of the C entry points the model runs, in order."""
     calls = []
     for name in ("mumpy_gemm_rows", "mumpy_gemm_sm90", "mumpy_gemm", "mumpy_ln_rows",
-                 "mumpy_swin_blocks_fwd", "mumpy_ln_mlp_train_fwd", "mumpy_ln_mlp_train_bwd"):
+                 "mumpy_mlp_rows", "mumpy_swin_blocks_fwd", "mumpy_ln_mlp_train_fwd",
+                 "mumpy_ln_mlp_train_bwd"):
         fn = getattr(ModelLib, name)
         monkeypatch.setattr(ModelLib, name,
                             lambda self, *a, fn=fn, name=name: calls.append(name) or fn(self, *a))
@@ -91,7 +92,8 @@ def test_gemm_rows_ln_stats_fault(model_lib):
 def test_swin_blocks_one_call(model_lib, monkeypatch):
     """#1 and #2 in bf16 launch one call each (``mumpy_swin_blocks_fwd``)
     within the branch bound of their f32 plain versions on the same bf16
-    inputs; the LayerNorm-statistics fault lands far above it."""
+    inputs, each block's MLP half at this C of 64 on the fused MLP; the
+    LayerNorm-statistics fault lands far above it."""
     calls = _recorded(monkeypatch)
     _, x, ops = pair_case(PAIR_GEOMETRIES["w7s3"], seed=23)
     ops16, x16 = cast_ops(ops, torch.bfloat16), t(x).bfloat16()
@@ -103,6 +105,8 @@ def test_swin_blocks_one_call(model_lib, monkeypatch):
         ref = plain(x16.float(), cast_ops(kops, torch.float32))
         got = kernel(x16, kops)
         assert calls[0] == "mumpy_swin_blocks_fwd" and calls.count("mumpy_swin_blocks_fwd") == 1
+        assert calls.count("mumpy_mlp_rows") == (2 if name == "swin_pair" else 1)
+        assert calls.count("mumpy_ln_rows") == calls.count("mumpy_mlp_rows")  # LN1s only
         assert branch_error(name, x16.float(), got, ref) <= BF16_BRANCH_TOL / 2
         bad = kernel(x16, {**kops, "ln_stats_on": False})
         assert branch_error(name, x16.float(), bad, ref) >= 3 * BF16_BRANCH_TOL

@@ -19,7 +19,7 @@ import torch
 
 from mumpy_tpu_torch.ops import attn_ln_train, ln_mlp_train
 from torch_cases import (attn_train_case, mlp_train_case, model_lib,  # noqa: F401
-                         rounded, run_with_grads)
+                         record_calls, rounded, run_with_grads)
 from torch_cases import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -41,10 +41,23 @@ def _check(kernel, plain, args, cots, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shifted", [False, True])
-def test_attn_ln_train_launches(model_lib, dtype, shifted):
+def test_attn_ln_train_launches(model_lib, monkeypatch, dtype, shifted):
+    """bf16 launches one C call each way; neither dtype's backward runs a
+    forward attention core (its o comes from the attention backward)."""
+    calls = record_calls(monkeypatch, "mumpy_attn_ln_train_fwd", "mumpy_attn_ln_train_bwd",
+                         "mumpy_window_attention", "mumpy_window_attention_bwd")
     x, mb, p, keep, cots = attn_train_case(61, shifted)
     _check(attn_ln_train.launch_attn_ln_train, attn_ln_train.attn_ln_train_plain,
            (x, mb, p, keep), cots, dtype)
+    names = [name for name, _ in calls if name.startswith("mumpy_attn")]
+    assert names == (["mumpy_attn_ln_train_fwd", "mumpy_attn_ln_train_bwd"]
+                     if dtype == torch.bfloat16 else [])
+    # (name, whether it writes o): argument 4 of the backward core is o
+    cores = [(name, name.endswith("_bwd") and a[4] is not None)
+             for name, a in calls if "window_attention" in name]
+    # the forward's core, then the backward's, which also gives o
+    assert cores[:1] == [("mumpy_window_attention", False)]
+    assert cores[1:] == [("mumpy_window_attention_bwd", True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -322,7 +322,7 @@ def _mask(mb, P, H, N, strides, mb_dtype):
 
 
 class ModelLib:
-    """What csrc/gemm.cu, gemm_sm90.cu, window_attention.cu,
+    """What csrc/gemm.cu, gemm_sm90.cu, mlp_sm90.cu, window_attention.cu,
     window_attention_bwd.cu, train_rows.cu, wgrad.cu, cva_sample.cu and
     vit3_attention.cu compute, on the raw buffers the wrappers pass, and the
     launch sequences of swin_pair.cu and swin_block_train.cu, composed from
@@ -460,7 +460,7 @@ class ModelLib:
                 _view(outs[2 * i + 1], len2, dt).copy_(total[len1:].to(dt))
         return 0
 
-    def mumpy_window_attention_bwd(self, qkv, do, mb, dqkv, dmb, R, N, H, hd, P, mb_dtype,
+    def mumpy_window_attention_bwd(self, qkv, do, mb, dqkv, o, dmb, R, N, H, hd, P, mb_dtype,
                                    s0, s1, s2, s3, chunks, scale, rowsum, dtype, stream):
         dt = DTYPES[dtype]
         c = H * hd
@@ -481,6 +481,9 @@ class ModelLib:
         _view(dqkv, R * N * 3 * c, dt).copy_(out.to(dt))
         dm = _view(dmb, P * H * N * N, torch.float32).reshape(P, H, N, N)
         dm += ds.reshape(R // P, P, H, N, N).sum(0)
+        if o is not None:  # the forward's head outputs, T(P) V
+            ov = torch.einsum("rhij,rjhd->rihd", p.to(dt).float(), v).reshape(-1)
+            _view(o, R * N * c, dt).copy_(ov.to(dt))
         return 0
 
     # csrc/swin_block_train.cu launches, for bf16, the sequence that
@@ -533,7 +536,7 @@ class ModelLib:
         return 256
 
     def mumpy_swin_blocks_fwd(self, x, blocks, w, mb, mb_desc, row_map, map_len, y, scratch,
-                              R, N, C, hidden, H, ln_stats_on, stream):
+                              R, N, C, hidden, H, ln_stats_on, gelu_on, stream):
         from mumpy_tpu_torch.ops import swin_block
 
         bf = torch.bfloat16
@@ -551,8 +554,74 @@ class ModelLib:
                             "mb": _mask(mb[i], P, H, N, (s0, s1, s2, s3), dtype).to(DTYPES[dtype])},
                    "mlp": dict(zip(names[6:], ws[6:]))}
             out = swin_block.block_sequence(out, ops, R, N, row_map=rmap if i == 0 else None,
-                                            ln_stats_on=bool(ln_stats_on))
+                                            ln_stats_on=bool(ln_stats_on),
+                                            gelu_on=bool(gelu_on))
         _view(y, R * N * C, bf).copy_(out.reshape(-1))
+        return 0
+
+    def mumpy_mlp_rows(self, x, g, b, w1, b1, w2, b2, y, M, C, hidden, ln_stats_on, gelu_on,
+                       stream):
+        # csrc/mlp_sm90.cu: bf16, C a multiple of 16 up to 256, hidden a
+        # multiple of 8, 16-byte aligned operands, y apart from x (the
+        # wrapper checks); rounded where the kernel rounds: h, g, the branch
+        assert C % 16 == 0 and 16 <= C <= 256 and hidden % 8 == 0 and x != y
+        assert all(p % 16 == 0 for p in (x, g, b, w1, b1, w2, b2, y))
+        bf = torch.bfloat16
+        X = _view(x, M * C, bf).reshape(M, C).float()
+        mu = X.mean(-1, keepdim=True)
+        rs = torch.rsqrt(((X - mu) ** 2).mean(-1, keepdim=True) + 1e-5)
+        if not ln_stats_on:  # the planted fault: mean 0, rstd 1
+            mu, rs = torch.zeros_like(mu), torch.ones_like(rs)
+        h = ((X - mu) * rs * _view(g, C, bf).float() + _view(b, C, bf).float()).to(bf).float()
+        f1 = h @ _view(w1, C * hidden, bf).float().reshape(C, hidden) + _view(b1, hidden, bf).float()
+        hid = (F.gelu(f1) if gelu_on else f1).to(bf).float()  # gelu_on = 0: the planted fault
+        v = hid @ _view(w2, hidden * C, bf).float().reshape(hidden, C) + _view(b2, C, bf).float()
+        _view(y, M * C, bf).copy_((X + v.to(bf).float()).to(bf).reshape(-1))
+        return 0
+
+    # csrc/swin_block_train.cu's attn_ln_train calls, the sequences
+    # ops/attn_ln_train.py composes for f32, likewise
+    @staticmethod
+    def _attn_views(x, mb, mb_dtype, strides, keep, w, R, N, C, H, P):
+        bf = torch.bfloat16
+        shapes = ((C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,))
+        weights = [None if w[i] is None else _view(w[i], math.prod(shape), bf).reshape(shape)
+                   for i, shape in enumerate(shapes)]
+        extent = 1 + sum((d - 1) * st for d, st in zip((P, H, N, N), strides))
+        return (_view(x, R * N * C, bf).reshape(R, N, C),
+                _view(mb, extent, DTYPES[mb_dtype]).as_strided((P, H, N, N), strides),
+                _view(keep, R, torch.float32), weights)
+
+    def mumpy_attn_ln_train_scratch(self, R, N, C, H, P, backward):
+        return 256
+
+    def mumpy_attn_ln_train_fwd(self, x, mb, mb_dtype, s0, s1, s2, s3, keep, w, y, out,
+                                scratch, R, N, C, H, P, stream):
+        from mumpy_tpu_torch.ops import attn_ln_train
+
+        bf = torch.bfloat16
+        xt, mbt, kt, ws = self._attn_views(x, mb, mb_dtype, (s0, s1, s2, s3), keep, w, R, N, C,
+                                           H, P)
+        got = attn_ln_train.forward_sequence(xt, mbt, kt, *ws, H)
+        _view(y, R * N * C, bf).copy_(got[0].reshape(-1))
+        _view(out, R * N * C, bf).copy_(got[1].reshape(-1))
+        return 0
+
+    def mumpy_attn_ln_train_bwd(self, x, dy, dout, mb, mb_dtype, s0, s1, s2, s3, keep, w, dx,
+                                dmb, dw, scratch, R, N, C, H, P, rowsum, stream):
+        from mumpy_tpu_torch.ops import attn_ln_train
+
+        bf = torch.bfloat16
+        xt, mbt, kt, ws = self._attn_views(x, mb, mb_dtype, (s0, s1, s2, s3), keep, w, R, N, C,
+                                           H, P)
+        dyt = None if dy is None else _view(dy, R * N * C, bf).reshape(R, N, C)
+        got = attn_ln_train.backward_sequence(xt, mbt, kt, *ws[:5], None, H, dyt,
+                                              _view(dout, R * N * C, bf).reshape(R, N, C),
+                                              bool(rowsum))
+        _view(dx, R * N * C, bf).copy_(got[0].reshape(-1))
+        _view(dmb, P * H * N * N, DTYPES[mb_dtype]).copy_(got[1].reshape(-1))
+        for i, g in enumerate(got[3:]):
+            _view(dw[i], g.numel(), bf).copy_(g.reshape(-1))
         return 0
 
     # csrc/swin_block_train.cu's ln_mlp_train calls, the sequences
@@ -659,6 +728,18 @@ class ModelLib:
         out = torch.einsum("rhij,jrhd->irhd", p, v).reshape(-1)
         _view(o, 3 * R * c, dt).copy_(out.to(dt))
         return 0
+
+
+def record_calls(monkeypatch, *names):
+    """Record the C entry points of ``names`` that the model runs, in order,
+    as (name, arguments) pairs (nested calls of a sequence's model too)."""
+    calls = []
+    for name in names:
+        fn = getattr(ModelLib, name)
+        monkeypatch.setattr(ModelLib, name,
+                            lambda self, *a, fn=fn, name=name: calls.append((name, a))
+                            or fn(self, *a))
+    return calls
 
 
 @pytest.fixture
