@@ -12,8 +12,9 @@ Phases (any failure exits non-zero, before the result line):
    period, ratio) that the flagship 224^2 forward launches, at batch 2, plus
    the instances earlier slices launched and the default path no longer does
    (the stage-2 blocks one by one, as each pair's two halves, and the
-   ViT-shaped ``ln_mlp``) and seeded flagship-shaped pair and vit3 cases
-   (``tests/torch_cases.py``), and hold each kernel against its plain
+   ViT-shaped ``ln_mlp``), seeded flagship-shaped pair and vit3 cases
+   (``tests/torch_cases.py``) and every ``attn_ln`` instance again on seeded
+   rows of varied mean and scale, and hold each kernel against its plain
    PyTorch version, in f32 and in bf16: the largest error against
    max(1, max|ref|) (f32 1e-4; bf16, against the f32 plain version, 2e-2),
    and the RMS error against the RMS of the kernel's own branch, the output
@@ -21,10 +22,15 @@ Phases (any failure exits non-zero, before the result line):
    Planted faults run on the bf16 instances and the branch comparison must
    call each wrong: the mask+bias zeroed (every instance that takes one),
    the pair's row map replaced by the identity (no shift), every LayerNorm of
-   the pair's and the block's bf16 sequence with mean 0 and rstd 1 (the
-   statistics ignored), GELU dropped from the fused MLP (every ``swin_block``
-   instance at C <= 256, whose MLP half runs on ``csrc/mlp_sm90.cu``), and
-   vit3's scores zeroed (uniform attention; required on the seeded case, see
+   the bf16 sequences of ``swin_pair``, ``swin_block``, ``attn_ln`` and
+   ``ln_mlp`` with mean 0 and rstd 1 (the statistics ignored; for
+   ``attn_ln`` required on its seeded rows, since the stage-0 flagship
+   inputs come out of a LayerNorm), GELU dropped
+   from the fused MLP (every ``swin_block`` and ``ln_mlp`` instance at
+   C <= 256, whose MLP half runs on ``csrc/mlp_sm90.cu``), the pad keys
+   N..63 left unmasked in the fused attention half (every ``attn_ln``
+   instance at C <= 256, on ``csrc/attn_sm90.cu``), and vit3's scores zeroed
+   (uniform attention; required on the seeded case, see
    ``planted_faults``);
 4. the main path: the flagship forward through ``make_serving_forward`` with
    seeded random weights, once on the kernel path and once on the plain path
@@ -35,22 +41,28 @@ Phases (any failure exits non-zero, before the result line):
    twice the plain path;
 5. bf16 frames/s of both paths at batch 32 (CUDA events after warm-up) and
    the peak device memory;
-6. each kernel's time per batch-32 bf16 forward beside its plain version's,
+6. each kernel's time per batch-32 bf16 forward beside its plain version's
+   (``attn_ln`` and ``ln_mlp`` also beside the launches the port made for
+   them from Python before they became one C call, ``parent_route``),
    and the least time the card could take for the same work (``bound_ms``:
    the larger of the bytes over 3.35 TB/s and the flops over 989 TFLOP/s,
    the H100 SXM's HBM rate and dense bf16 tensor-core peak), per instance;
    then the trace (``serving_trace``, ``train_trace``; alone with
    ``--trace``): the batch-32 bf16 forward under ``torch.profiler`` (device
    ms against its untraced ms: the idle share; launches by kernel name), the
-   launches by name of every ``swin_pair`` and ``swin_block`` instance of it,
-   each ``swin_block`` instance's launches by stage and view with its GEMM
-   launches by product (``block_breakdown``), the launches by name of
+   launches by name of every ``swin_pair``, ``swin_block``, ``attn_ln`` and
+   ``ln_mlp`` instance of it, each ``swin_block``, ``attn_ln`` and ``ln_mlp``
+   instance's launches by stage and view with its GEMM launches by product
+   (``block_breakdown``), the launches by name of
    ``ln_mlp_train``'s and ``attn_ln_train``'s forward and backward in one
    12-clip step, the persistent GEMM's time beside ``torch.matmul``'s on
    each product shape of ``swin_pair`` and ``ln_mlp_train``
-   (``product_yardstick``), and the fused MLP's beside the two products it
-   replaced and ``torch.matmul`` -> GELU -> ``torch.matmul`` on #1's
-   C <= 256 instances (``mlp_yardstick``).
+   (``product_yardstick``), the fused MLP's beside the two products it
+   replaced and ``torch.matmul`` -> GELU -> ``torch.matmul`` on #1's and
+   #4's C <= 256 instances (``mlp_yardstick``), and the fused attention
+   half's beside its four launches and ``layer_norm`` -> ``linear`` ->
+   ``scaled_dot_product_attention`` -> ``linear`` on #3's
+   (``attn_yardstick``).
 
 Training, the flagship at the DVI recipe's 12 clips per step (6 clips x 2
 inpainting streams, SGD) on seeded synthetic clips and masks, with
@@ -100,7 +112,7 @@ drop-path 0.2:
 11. ``python -m mumpy_tpu_torch.train``'s ``main`` for one epoch on
    synthetic 224^2 PNG clips (two streams, 12 clips per step, two steps, a
    val pass and the checkpoints), then ``mumpy_tpu_torch.serve``'s ``main``
-   on the ``weights_torch.pt`` it wrote, in f32, in bf16, and in bf16 with
+   on the checkpoint of epoch 0 it wrote (``-test_epoch 0``), in f32, in bf16, and in bf16 with
    ``-kernel_set attention`` (both CLIs on the card by default).
 
 The ``"attention"`` kernel set (the JAX package's ``MUMPY_FUSED_BLOCK=off
@@ -151,6 +163,8 @@ The second-to-last line of output is a JSON object with one entry per kernel
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -176,9 +190,10 @@ KERNEL_INFO = {  # name -> (CUDA sources it launches, TPU kernel it replaces)
                     "window_attention.cu"], "mumpy_tpu/ops/pallas/swin_block.py:180"),
     "swin_pair": (["swin_pair.cu", "gemm_sm90.cu", "train_rows.cu", "window_attention.cu"],
                   "mumpy_tpu/ops/pallas/swin_pair.py:191"),
-    "attn_ln": (["gemm_sm90.cu", "train_rows.cu", "window_attention.cu"],
-                "mumpy_tpu/ops/pallas/attn_ln.py:51"),
-    "ln_mlp": (["gemm_sm90.cu", "train_rows.cu"], "mumpy_tpu/ops/pallas/ln_mlp.py:40"),
+    "attn_ln": (["attn_sm90.cu", "swin_pair.cu", "gemm_sm90.cu", "train_rows.cu",
+                 "window_attention.cu"], "mumpy_tpu/ops/pallas/attn_ln.py:51"),
+    "ln_mlp": (["swin_pair.cu", "mlp_sm90.cu", "gemm_sm90.cu", "train_rows.cu"],
+               "mumpy_tpu/ops/pallas/ln_mlp.py:40"),
     "cva": (["gemm_sm90.cu", "gemm.cu", "cva_sample.cu", "window_attention.cu"],
             "mumpy_tpu/ops/pallas/cva.py:79"),
     "vit3": (["gemm_sm90.cu", "train_rows.cu", "vit3_attention.cu"],
@@ -278,9 +293,12 @@ def uniform_attention(ops):
 def planted_faults(name, ops):
     """(label, operands, whether the flagship forward's own inputs must show
     it) of every planted fault that applies to an instance (the LayerNorm
-    one on the bf16 sequences of ``swin_pair`` and ``swin_block`` only; GELU
-    dropped on the ``swin_block`` instances whose MLP half runs on the fused
-    kernel, C <= 256).  Uniform
+    one on the bf16 sequences of ``swin_pair``, ``swin_block``, ``attn_ln``
+    (required on the seeded inputs) and ``ln_mlp``; GELU dropped on the
+    ``swin_block`` and ``ln_mlp``
+    instances whose MLP half runs on the fused kernel, C <= 256; the pad keys
+    unmasked on the ``attn_ln`` instances on the fused attention half, C <=
+    256).  Uniform
     attention is required to show only on the seeded inputs: the random-weight
     flagship's ViT input has three nearly alike time slices (views 1 and 2
     are tiled over time), so its own softmax is nearly uniform already
@@ -290,27 +308,38 @@ def planted_faults(name, ops):
         faults.append(("mask+bias zeroed", drop_mask_bias(ops), True))
     if name == "swin_pair":
         faults.append(("identity row map", identity_map(ops), True))
-    if name in ("swin_pair", "swin_block"):
-        faults.append(("LayerNorm statistics ignored", {**ops, "ln_stats_on": False}, True))
-    if name == "swin_block" and fused_route(ops):
+    if name in ("swin_pair", "swin_block", "attn_ln", "ln_mlp"):
+        # #3's flagship inputs at stage 0 come out of the embedding's
+        # LayerNorm, so their statistics are nearly mean 0 and rstd 1 already:
+        # required on the seeded inputs of every #3 shape
+        faults.append(("LayerNorm statistics ignored", {**ops, "ln_stats_on": False},
+                       name != "attn_ln"))
+    if name in ("swin_block", "ln_mlp") and fused_route(name, ops):
         faults.append(("GELU dropped", {**ops, "gelu_on": False}, True))
+    if name == "attn_ln" and fused_route(name, ops):
+        faults.append(("pad keys unmasked", {**ops, "key_mask_on": False}, True))
     if name == "vit3":
         faults.append(("scores zeroed", uniform_attention(ops), False))
     return faults
 
 
-def fused_route(ops):
-    """Whether a ``swin_block`` instance's bf16 MLP half runs on the fused
-    MLP (``csrc/mlp_sm90.cu``)."""
+def fused_route(name, ops):
+    """Whether an instance's bf16 launches take a fused kernel: the MLP half
+    of ``swin_block`` and ``ln_mlp`` (``csrc/mlp_sm90.cu``), the attention
+    half of ``attn_ln`` (``csrc/attn_sm90.cu``)."""
     from mumpy_tpu_torch.ops import cuda_lib
 
-    c, hidden = ops["mlp"]["w1"].shape
+    if name == "attn_ln":
+        return cuda_lib.fused_attn(ops["mb"].shape[-1], ops["w_proj"].shape[0], ops["heads"])
+    c, hidden = (ops["mlp"] if name == "swin_block" else ops)["w1"].shape
     return hasattr(cuda_lib, "fused_mlp") and cuda_lib.fused_mlp(c, hidden)
 
 
 def tensors_of(obj):
+    """The tensors of the operands, each weight once (``w_qkv_rows`` is the
+    qkv weight again, in the layout the fused attention half reads)."""
     if isinstance(obj, dict):
-        return [t for v in obj.values() for t in tensors_of(v)]
+        return [t for k, v in obj.items() if k != "w_qkv_rows" for t in tensors_of(v)]
     if isinstance(obj, (tuple, list)):
         return [t for v in obj for t in tensors_of(v)]
     return [obj] if torch.is_tensor(obj) else []
@@ -435,7 +464,8 @@ class Capture:
         """The flagship pair and vit3 shapes at batch 2 from independent seeded
         draws (``tests/torch_cases.py``, shared with the card tests): every
         window, head and time slice differs, so each planted fault has a
-        function to break."""
+        function to break; and every captured #3 instance again on seeded
+        rows."""
         sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
         import torch_cases as tc
 
@@ -445,6 +475,16 @@ class Capture:
         c, heads, m = tc.FLAGSHIP_VIT3
         _, x, ops = tc.vit3_case(seed=52, r=2 * 49, c=c, heads=heads, m=m)
         self.add("vit3", tc.to_dev((tc.t(x), ops), device), 0, "seeded")
+        # every #3 shape with its own operands on seeded rows of varied mean
+        # and scale, which a LayerNorm has work to do on
+        g = torch.Generator(device=device).manual_seed(SEED + 53)
+        for (name, *_, tag), (args, _) in list(self.instances.items()):
+            if name == "attn_ln" and tag == "captured":
+                x, ops = args
+                mean = torch.randn(*x.shape[:2], 1, generator=g, device=device)
+                scale = 0.5 + 1.5 * torch.rand(*x.shape[:2], 1, generator=g, device=device)
+                rows = mean + scale * torch.randn(x.shape, generator=g, device=device)
+                self.add("attn_ln", (rows.to(x.dtype), ops), 0, "seeded")
 
     def _wrap(self, name, plain):
         def rec(*args):
@@ -945,15 +985,19 @@ def training_phases(cfg, dev, smi, rng):
                         "-seq_dir", str(root / "vi"), "-seq_dir2", str(root / "cp"),
                         "-annot_dir", str(root / "annot"), *flags])
         t1 = time.perf_counter()
-        serve.main(["-model_name", "smoke", "-results_dir", str(res), "-dataset", "davis",
-                    "-seq_dir", str(root / "vi"), "-batch_size", str(TRAIN_CLIPS), *flags])
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):  # serve the epoch's checkpoint by number
+            serve.main(["-model_name", "smoke", "-results_dir", str(res), "-dataset", "davis",
+                        "-seq_dir", str(root / "vi"), "-batch_size", str(TRAIN_CLIPS),
+                        "-test_epoch", "0", *flags])
+        log(said.getvalue().rstrip())
         n_masks = sum(len(files) for _, _, files in os.walk(res / "smoke" / "masks_davis"))
-        weights = (res / "smoke" / "weights_torch.pt").exists()
+        served = "Loaded checkpoint of epoch 0" in said.getvalue()
         log(f"[train-cli] {' '.join(flags) or 'f32'}: one epoch trained in {t1 - t0:.1f} s "
-            f"(checkpoints included) and served: weights_torch.pt written {weights}, "
+            f"(checkpoints included) and served from ckpt_0.pt (-test_epoch 0): {served}, "
             f"{n_masks} masks")
         shutil.rmtree(root, ignore_errors=True)
-        if not weights or n_masks != SYNTH_SEQS * SYNTH_FRAMES:
+        if not served or n_masks != SYNTH_SEQS * SYNTH_FRAMES:
             log("[train-cli] FAILED")
             return None
 
@@ -1327,19 +1371,29 @@ def serving_trace(model, dev, clip32, smi):
             x, ops = args
             product_yardstick(f"swin_pair x{count}", x.shape[0] * x.shape[1], x.shape[2],
                               ops["a"]["mlp"]["w1"].shape[1], smi, row_map=ops["map"])
-    for name in ("swin_pair", "swin_block"):
+    for name in ("swin_pair", "swin_block", "attn_ln", "ln_mlp"):
         calls = [(getattr(cap.kernels[name], name), args, count)
                  for (kname, *_), (args, count) in cap.instances.items() if kname == name]
         with torch.inference_mode():
             launch_breakdown(lambda: [k(*a) for k, a, n in calls for _ in range(n)],
                              f"{name}, one bf16 batch-32 forward's instances", smi)
     with torch.inference_mode():
-        block_breakdown([(args, count) for (kname, *_), (args, count) in cap.instances.items()
-                         if kname == "swin_block"], smi)
+        for name in BLOCK_PRODUCTS:
+            block_breakdown(name, [(args, count)
+                                   for (kname, *_), (args, count) in cap.instances.items()
+                                   if kname == name], smi)
         for (kname, *_), (args, count) in cap.instances.items():
-            if kname == "swin_block" and fused_route(args[1]):
+            if kname == "swin_block" and fused_route(kname, args[1]):
                 x, ops = args
                 mlp_yardstick(f"swin_block x{count}", x.shape[0] * x.shape[1], ops["mlp"], smi)
+            # the parent of this script has no fused attention half: no yardsticks there
+            elif kname in ("attn_ln", "ln_mlp") and hasattr(cuda_lib, "fused_attn"):
+                x, ops = args
+                if kname == "ln_mlp" and cuda_lib.fused_mlp(*ops["w1"].shape):
+                    mlp_yardstick(f"ln_mlp x{count}", x.numel() // x.shape[-1], ops, smi)
+                elif kname == "attn_ln" and cuda_lib.fused_attn(x.shape[1], x.shape[2],
+                                                                ops["heads"]):
+                    attn_yardstick(f"attn_ln x{count}", x.shape, ops, smi)
 
 
 # the flagship's widths: (stage, views) by C
@@ -1360,22 +1414,30 @@ def sequence_launches(fn):
     return [(e.name, e.time_range.elapsed_us() / 1e3) for e in events]
 
 
-def block_breakdown(instances, smi):
-    """#1 (``swin_block``) instance by instance (stage and view), each as
-    often as one bf16 batch-32 forward runs it: the device ms of its GEMM
-    launches by product (qkv, proj, fc1, fc2, in the order the block runs
-    them), of its ``ln_rows`` launches, its attention core and, where it
-    runs one, its fused MLP."""
-    from mumpy_tpu_torch.ops.swin_block import swin_block
+# the GEMM launches of each kernel's bf16 sequence, in the order it runs them
+BLOCK_PRODUCTS = {"swin_block": ("qkv", "proj", "fc1", "fc2"), "attn_ln": ("qkv", "proj"),
+                  "ln_mlp": ("fc1", "fc2")}
 
+
+def block_breakdown(name, instances, smi):
+    """#1 (``swin_block``), #3 (``attn_ln``) or #4 (``ln_mlp``) instance by
+    instance (stage and view), each as often as one bf16 batch-32 forward
+    runs it: the device ms of its GEMM launches by product (in the order the
+    kernel runs them, ``BLOCK_PRODUCTS``), of its ``ln_rows`` launches, its
+    attention core and, where it runs one, its fused MLP or fused attention
+    half."""
+    from importlib import import_module
+
+    kernel = getattr(import_module(f"mumpy_tpu_torch.ops.{name}"), name)
+    products = BLOCK_PRODUCTS[name]
     for args, count in instances:
         x = args[0]
-        r, n, c = x.shape
-        swin_block(*args)  # warm-up
+        c = x.shape[-1]
+        kernel(*args)  # warm-up
         parts, gemms = {}, 0
-        for kname, ms in sequence_launches(lambda: swin_block(*args)):
+        for kname, ms in sequence_launches(lambda: kernel(*args)):
             if "gemm_rows_kernel" in kname:
-                label = ("qkv", "proj", "fc1", "fc2")[gemms] if gemms < 4 else "gemm"
+                label = products[gemms] if gemms < len(products) else "gemm"
                 gemms += 1
             elif "ln_rows" in kname:
                 label = "ln_rows"
@@ -1383,13 +1445,16 @@ def block_breakdown(instances, smi):
                 label = "attention"
             elif "mlp_rows" in kname:
                 label = "fused mlp"
+            elif "attn_rows" in kname:
+                label = "fused attention"
             else:
                 label = kname[:40]
             ms0, n0 = parts.get(label, (0.0, 0))
             parts[label] = (ms0 + count * ms, n0 + count)
         stage, views = BLOCK_STAGES.get(c, ("?", "?"))
-        log(f"[block] swin_block stage {stage} {views} ({r * n} rows x C {c}) x{count}: "
-            f"device {sum(t for t, _ in parts.values()):.3f} ms; "
+        log(f"[block] {name} stage {stage} {views} ({x.numel() // c} rows x C {c}) x{count}: "
+            f"device {sum(t for t, _ in parts.values()):.3f} ms in "
+            f"{sum(k for _, k in parts.values())} launches; "
             + ", ".join(f"{label} {t:.3f} ms x{k}" for label, (t, k) in parts.items())
             + f" ({smi})")
 
@@ -1440,6 +1505,23 @@ def product_yardstick(label, rows, c, hidden, smi, row_map=None, kmajor=False, d
     return out
 
 
+def parent_route(name, args):
+    """#3's (``attn_ln``) and #4's (``ln_mlp``) bf16 launches as the port made
+    them from Python before they became one C call: ``ln_rows``, qkv, the
+    attention core and proj; ``ln_rows``, fc1 with GELU, fc2 with the
+    residual."""
+    from mumpy_tpu_torch.ops import cuda_lib
+
+    x, ops = args
+    x2 = x.reshape(-1, x.shape[-1])
+    if name == "attn_ln":
+        from mumpy_tpu_torch.ops.attn_ln import attn_sequence
+
+        return attn_sequence(x2, ops, x.shape[0], x.shape[1])
+    f, _ = cuda_lib.gemm(x2, ops["w1"], ops["b1"], ln=(ops["ln_g"], ops["ln_b"]), gelu=True)
+    return cuda_lib.gemm(f, ops["w2"], ops["b2"], res=x2, want_y=False, want_out=True)[1]
+
+
 def mlp_yardstick(label, rows, mlp, smi):
     """#1's MLP half at ``rows`` rows with its own bf16 operands ``mlp`` on
     seeded rows: the fused MLP (``csrc/mlp_sm90.cu``) beside the two-product
@@ -1457,8 +1539,7 @@ def mlp_yardstick(label, rows, mlp, smi):
     h = F.layer_norm(x, (c,), mlp["ln_g"], mlp["ln_b"])
 
     def two_products():
-        f, _ = cuda_lib.gemm(x, mlp["w1"], mlp["b1"], ln=(mlp["ln_g"], mlp["ln_b"]), gelu=True)
-        return cuda_lib.gemm(f, mlp["w2"], mlp["b2"], res=x, want_y=False, want_out=True)[1]
+        return parent_route("ln_mlp", (x, mlp))
 
     fused = cuda_lib.mlp_rows(x, mlp)
     err = (fused.float() - two_products().float()).abs().max().item()
@@ -1473,6 +1554,52 @@ def mlp_yardstick(label, rows, mlp, smi):
         f"of peak; {bare:.4f} ms without GELU), two products {two:.4f} ms, torch.matmul -> "
         f"gelu -> torch.matmul {mm:.4f} ms, ratio {ms / mm:.2f}; max |fused - two products| "
         f"{err:.3g} ({smi})")
+
+
+def attn_yardstick(label, shape, ops, smi):
+    """#3's attention half at C <= 256 on seeded windows of ``shape`` (R, N,
+    C) with its own bf16 operands ``ops``: the fused kernel
+    (``csrc/attn_sm90.cu``) beside the four launches it replaces (``ln_rows``,
+    qkv, the attention core, proj, from Python) and beside
+    ``F.layer_norm`` -> ``F.linear`` -> ``scaled_dot_product_attention`` (the
+    mask+bias as its float ``attn_mask``) -> ``F.linear`` + the residual, a
+    yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    from mumpy_tpu_torch.ops import cuda_lib
+    from mumpy_tpu_torch.ops.attn_ln import attn_sequence
+
+    r, n, c = shape
+    heads = ops["heads"]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(r, n, c, generator=g, device="cuda").bfloat16()
+    x2 = x.reshape(r * n, c)
+    mask = ops["mb"].to(torch.bfloat16)
+
+    def four():
+        return attn_sequence(x2, ops, r, n)
+
+    def torch_half():
+        h = F.layer_norm(x, (c,), ops["ln_g"], ops["ln_b"])
+        q, k, v = F.linear(h, ops["w_qkv_rows"], ops["b_qkv"]).reshape(
+            r, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        return x + (o.transpose(1, 2).reshape(r, n, c) @ ops["w_proj"] + ops["b_proj"])
+
+    fused = cuda_lib.attn_rows(x, ops)
+    err = max((a.reshape(-1).float() - b.reshape(-1).float()).abs().max().item()
+              for a, b in zip(fused, four()))
+    ms = cuda_ms(lambda: cuda_lib.attn_rows(x, ops), reps=10)
+    ms4 = cuda_ms(four, reps=10)
+    mt = cuda_ms(torch_half, reps=10)
+    flops = r * n * (8 * c * c + 4 * n * c)
+    nbytes = 3 * r * n * c * 2  # x in, y and x + y out
+    log(f"[product] {label} fused attention ({r} windows x {n} x C {c}, {heads} heads): "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * flops / ms / 1e9 / (PEAK_FLOPS / 1e12):.1f}% of peak; "
+        f"{nbytes / ms / 1e6:.0f} GB/s, {100 * nbytes / ms / 1e9 / (PEAK_BYTES / 1e12):.1f}% of "
+        f"HBM), four launches {ms4:.4f} ms, torch layer_norm -> linear -> sdpa -> linear "
+        f"{mt:.4f} ms, ratio {ms / mt:.2f}; max |fused - four launches| {err:.3g} ({smi})")
 
 
 def train_trace(cfg, dev, smi, rng):
@@ -1769,6 +1896,7 @@ def main() -> int:
         fwd(clip32)
     # per kernel: kernel ms, plain ms, bound ms, seconds of flops, seconds of bytes
     times = {k: [0.0] * 5 for k in EXPECTED_LAUNCHES}
+    parent_ms = dict.fromkeys(("attn_ln", "ln_mlp"), 0.0)  # their routes before this slice
     with torch.inference_mode():
         for key, (args, count) in cap.instances.items():
             name = key[0]
@@ -1782,9 +1910,13 @@ def main() -> int:
             row[2] += count * max(t_ops, t_bytes)
             row[3] += count * t_ops
             row[4] += count * t_bytes
+            if name in parent_ms:
+                parent_ms[name] += count * cuda_ms(lambda: parent_route(name, args), reps=5)
     for name, (k_ms, p_ms, b_ms, _, _) in times.items():
-        log(f"[time] {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms "
-            f"per bf16 batch-32 forward ({smi})")
+        before = f" (the route from Python before: {parent_ms[name]:.3f} ms)" if (
+            name in parent_ms) else ""
+        log(f"[time] {name}: kernel {k_ms:.3f} ms{before}, plain {p_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms per bf16 batch-32 forward ({smi})")
     # the serving forward's trace, #2's and #1's launches by name, the
     # products' yardstick; #10's launches in one step
     serving_trace(model, dev, clip32, smi)
@@ -1814,7 +1946,8 @@ def main() -> int:
          "bound_ms": times[name][2],
          "bound_by": "operations" if times[name][3] >= times[name][4] else "bytes",
          # no single PyTorch call computes any of these whole contracts
-         "library_ms": None}
+         "library_ms": None,
+         **({"parent_route_ms": parent_ms[name]} if name in parent_ms else {})}
         for name in EXPECTED_LAUNCHES] + train_entries + [{**attn_entry, **attn_step}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

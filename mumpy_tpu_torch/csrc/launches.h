@@ -35,6 +35,13 @@ int mumpy_mlp_rows(const void* x, const void* ln_g, const void* ln_b, const void
                    const void* b1, const void* w2, const void* b2, void* y, int M, int C,
                    int hidden, int ln_stats_on, int gelu_on, void* stream);
 
+// attn_sm90.cu
+int mumpy_attn_rows(const void* x, const void* ln_g, const void* ln_b, const void* w_qkv,
+                    const void* b_qkv, const void* w_proj, const void* b_proj, const void* mb,
+                    int mb_dtype, int mb_s0, int mb_s1, int mb_s2, int mb_s3, int P, void* y,
+                    void* out, int R, int N, int C, int H, int ln_stats_on, int key_mask_on,
+                    void* stream);
+
 // window_attention.cu, window_attention_bwd.cu
 int mumpy_window_attention(const void* q, const void* k, const void* v, void* o, const void* mb,
                            int R, int N, int H, int hd, int q_mod, int ldq, int ldk, int ldv,

@@ -87,75 +87,6 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, 
       : "l"(da), "l"(db), "r"(1));
 }
 
-// d (64 x 64, f32) += A (64 x 16) B (16 x 64), A from registers (warp w's
-// rows 16w..16w+15 in mma_bf16's A-fragment layout), B N-major in shared
-// memory.  A's registers must not change until the product is done.
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const unsigned (&a)[4],
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// keep the A fragments in their registers until here
-__device__ __forceinline__ void fence_frags(unsigned (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-// LayerNorm of the consumer warp's 16 tile rows (row0 onward) in place in
-// the K-major A tile, where the producer's TMA landed the raw rows (rows past
-// M read zero and are written zero): lane l holds columns 8l..8l+7 of a row.
-__device__ __forceinline__ void ln_in_tile(const MlpArgs& p, unsigned char* a_tile, int m0,
-                                           int row0, int lane) {
-  const bool on = 8 * lane < p.C;
-  float g[8] = {}, b[8] = {};
-  if (on) {
-    unpack8(ldg8(p.ln_g + 8 * lane), g);
-    unpack8(ldg8(p.ln_b + 8 * lane), b);
-  }
-#pragma unroll 4
-  for (int i = 0; i < 16; ++i) {
-    const int r = row0 + i;
-    uint4* cell = reinterpret_cast<uint4*>(a_tile + (lane >> 3) * (kMlpBM * 128) + r * 128 +
-                                           (((lane & 7) ^ (r & 7)) << 4));
-    float v[8];
-    unpack8(on ? *cell : make_uint4(0, 0, 0, 0), v);
-    float s = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s += v[e];
-    float mu = warp_sum(s) / p.C, q = 0.f;
-    if (on) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) q += (v[e] - mu) * (v[e] - mu);
-    }
-    float rs = rsqrtf(warp_sum(q) / p.C + 1e-5f);
-    if (!p.ln_stats_on) {
-      mu = 0.f;
-      rs = 1.f;
-    }
-    const bool row_ok = m0 + r < p.M;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = row_ok ? (v[e] - mu) * rs * g[e] + b[e] : 0.f;
-    if (on) *cell = pack8(v);
-  }
-}
-
 template <int NC>
 __global__ void __launch_bounds__(kMlpThreads, 1)
     mlp_rows_kernel(const __grid_constant__ CUtensorMap x_tmap,
@@ -226,7 +157,8 @@ __global__ void __launch_bounds__(kMlpThreads, 1)
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x, tp ^= 1) {
       const int m0 = tile * kMlpBM;
       mbar_wait(a_full, tp);
-      ln_in_tile(p, a_tile, m0, cw * 64 + 16 * warp, lane);
+      ln_tile_rows(a_tile, kMlpBM, cw * 64 + 16 * warp, p.M - m0 - cw * 64 - 16 * warp, p.C,
+                   p.ln_g, p.ln_b, p.ln_stats_on, lane);
       fence_proxy_async();  // the rows, to the tensor cores
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");  // this warpgroup's rows
 
@@ -288,7 +220,7 @@ __global__ void __launch_bounds__(kMlpThreads, 1)
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
           for (int q = 0; q < kNq; ++q)
-            wgmma_rs_m64n64k16(acc2[q], a[kk], smem_desc(b2s + q * kPanel + kk * 2048, kPanel,
+            wgmma_rs_m64n64k16<1>(acc2[q], a[kk], smem_desc(b2s + q * kPanel + kk * 2048, kPanel,
                                                          1024));
         wgmma_commit();
       }

@@ -1,16 +1,22 @@
 """Kernel ``attn_ln``: ``y = proj(MSA(LN(x)) + mb)``, returning ``(y, x + y)``.
 
 Replaces ``mumpy_tpu/ops/pallas/attn_ln.py:fused_attn_ln_prepared`` (Pallas
-``_attn_kernel``), the attention half of the cross-view blocks; ``y`` is the
-partner stream the next view's CVA consumes.  On the card it is three
-launches (four in bf16): the GEMM with the LayerNorm prologue into packed
-qkv (``cuda_lib.gemm``: in bf16 the row statistics, then the persistent
-wgmma GEMM of ``csrc/gemm_sm90.cu``; in f32 ``csrc/gemm.cu``), the
-window-attention core with the periodic additive mask+bias
-(``csrc/window_attention.cu``), and the projection GEMM whose epilogue
-writes both ``y`` and ``x + y``.  qkv (3C per token) and the head outputs
-(C) round-trip device memory between launches; keeping them on chip needs
-the launches fused, which is later work.
+``_attn_kernel``), the attention half of the cross-view blocks, which keeps
+qkv and the head outputs in VMEM scratch; ``y`` is the partner stream the
+next view's CVA consumes.  The half moves x in and y, x + y out (6C bytes a
+token in bf16) and does 8C^2 + 4NC flops a token, so it is bound by its
+bytes below C ~ 200 and by the tensor cores above.  In bf16 it is one call
+of ``csrc/swin_pair.cu`` (``cuda_lib.attn_ln_fwd``): at C <= 256 (the
+flagship's stages 0 and 1) one launch of ``csrc/attn_sm90.cu``, which
+normalises each window's rows once in shared memory and keeps qkv and the
+head outputs on chip, head by head, with the projection accumulated in
+registers; at wider C four launches (``ln_rows``, the qkv product on the
+persistent wgmma GEMM of ``csrc/gemm_sm90.cu`` with Wqkv read as torch
+stores it, the window-attention core of ``csrc/window_attention.cu``, the
+projection writing ``y`` and ``x + y``), where qkv (3C a token) and the head
+outputs (C) round-trip device memory.  f32 composes those four here
+(:func:`attn_sequence`, also the CPU model of the wide bf16 route) on
+``csrc/gemm.cu``'s SIMT GEMM.
 """
 
 from __future__ import annotations
@@ -24,10 +30,14 @@ __all__ = ["attn_ln", "attn_ln_plain", "attn_ln_operands", "window_msa_plain"]
 
 
 def attn_ln_operands(ln_g, ln_b, w_qkv, b_qkv, w_proj, b_proj, mask_bias, heads):
-    """Kernel operands: weights stored (in, out), the (P, H, N, N) additive
-    term in f32 (its period P in windows is its leading dim)."""
+    """Kernel operands: weights stored (in, out), and the qkv weight also as
+    torch stores it (``w_qkv_rows``, (3C, C), the parameter itself: a head's
+    q, k and v columns are rows of it, which the fused bf16 kernel streams);
+    the (P, H, N, N) additive term in f32 (its period P in windows is its
+    leading dim)."""
     return {"ln_g": ln_g.detach().contiguous(), "ln_b": ln_b.detach().contiguous(),
-            "w_qkv": w_qkv.detach().t().contiguous(), "b_qkv": b_qkv.detach().contiguous(),
+            "w_qkv": w_qkv.detach().t().contiguous(), "w_qkv_rows": w_qkv.detach().contiguous(),
+            "b_qkv": b_qkv.detach().contiguous(),
             "w_proj": w_proj.detach().t().contiguous(),
             "b_proj": b_proj.detach().contiguous(),
             "mb": mask_bias.detach().float().contiguous(), "heads": heads}
@@ -76,12 +86,24 @@ def attn_ln(x, ops):
 
 
 def launch_attn_ln(x, ops):
-    """The kernel's launches: LN + qkv, attention, proj + residual."""
+    """The kernel's launches: one C call in bf16 (``cuda_lib.attn_ln_fwd``),
+    :func:`attn_sequence` in f32.  ``ops["ln_stats_on"] = False`` and
+    ``ops["key_mask_on"] = False`` (bf16) plant the checks' faults: the
+    LayerNorm with mean 0 and rstd 1; the pad keys unmasked in the fused
+    kernel."""
+    if x.dtype == torch.bfloat16:
+        return cuda_lib.attn_ln_fwd(x, ops, ln_stats_on=ops.get("ln_stats_on", True),
+                                    key_mask_on=ops.get("key_mask_on", True))
     r, n, c = x.shape
-    x2 = x.reshape(r * n, c)
-    o = attention_launches(x2, ops, r, n)
-    y, out = cuda_lib.gemm(o, ops["w_proj"], ops["b_proj"], res=x2, want_out=True)
+    y, out = attn_sequence(x.reshape(r * n, c), ops, r, n)
     return y.reshape(r, n, c), out.reshape(r, n, c)
+
+
+def attn_sequence(x2, ops, r, n, ln_stats_on=True):
+    """The four launches on the (R*N, C) rows ``x2``, composed here: LN +
+    qkv, the attention core, the projection writing ``y`` and ``x + y``."""
+    o = attention_launches(x2, ops, r, n, ln_stats_on=ln_stats_on)
+    return cuda_lib.gemm(o, ops["w_proj"], ops["b_proj"], res=x2, want_out=True)
 
 
 attn_ln.launches = 0

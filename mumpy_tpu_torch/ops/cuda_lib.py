@@ -56,6 +56,11 @@ _SIGNATURES = {
     "mumpy_swin_blocks_scratch": [_I] * 5,
     "mumpy_swin_blocks_fwd": [_P, _I, _P, _P, _P, _P, _I, _P, _P] + [_I] * 7 + [_P],
     "mumpy_mlp_rows": [_P] * 8 + [_I] * 5 + [_P],
+    "mumpy_attn_rows": [_P] * 8 + [_I] * 6 + [_P] * 2 + [_I] * 6 + [_P],
+    "mumpy_attn_ln_scratch": [_I] * 4,
+    "mumpy_attn_ln_fwd": [_P] * 3 + [_I] * 6 + [_P] * 3 + [_I] * 6 + [_P],
+    "mumpy_ln_mlp_scratch": [_I] * 3,
+    "mumpy_ln_mlp_fwd": [_P] * 4 + [_I] * 5 + [_P],
     "mumpy_attn_ln_train_scratch": [_I] * 6,
     "mumpy_attn_ln_train_fwd": [_P] * 2 + [_I] * 5 + [_P] * 5 + [_I] * 5 + [_P],
     "mumpy_attn_ln_train_bwd": [_P] * 4 + [_I] * 5 + [_P] * 6 + [_I] * 6 + [_P],
@@ -64,7 +69,8 @@ _SIGNATURES = {
     "mumpy_ln_mlp_train_bwd": [_P] * 7 + [_I] * 5 + [_P],
 }
 _LONG_RESULTS = ("mumpy_swin_block_train_scratch", "mumpy_swin_blocks_scratch",
-                 "mumpy_ln_mlp_train_scratch", "mumpy_attn_ln_train_scratch")
+                 "mumpy_ln_mlp_train_scratch", "mumpy_attn_ln_train_scratch",
+                 "mumpy_attn_ln_scratch", "mumpy_ln_mlp_scratch")
 
 
 def _nvcc() -> str:
@@ -739,6 +745,92 @@ def mlp_rows(x, ops, ln_stats_on=True, gelu_on=True):
                                                                 "w2", "b2")),
                                ptr(y), m, c, hidden, int(ln_stats_on), int(gelu_on),
                                stream_of(x)), "mlp_rows")
+    return y
+
+
+_CROSS_ATTN = ("ln_g", "ln_b", "w_qkv_rows", "b_qkv", "w_proj", "b_proj")  # #3's weights
+
+
+def fused_attn(n, c, heads):
+    """Whether #3's bf16 attention half runs on the fused kernel
+    (csrc/attn_sm90.cu; csrc/swin_pair.cu's ``fused_attn``): a head width of
+    32, C <= 256, N <= 64."""
+    return n <= 64 and c <= 256 and c == 32 * heads
+
+
+def _cross_attn_operands(x, ops):
+    """Check #3's bf16 operands (``attn_ln`` operands); return (R, N, C, P)."""
+    r, n, c = x.shape
+    require(x, "x", x, dtype=torch.bfloat16)
+    for k, shape in zip(_CROSS_ATTN, ((c,), (c,), (3 * c, c), (3 * c,), (c, c), (c,))):
+        require(ops[k], k, x, shape=shape)
+    heads = ops["heads"]
+    if n > 64 or c % heads or c // heads > 32 or c % 8:
+        raise ValueError(f"attn_ln takes n <= 64, a head width of at most 32 and C a "
+                         f"multiple of 8; got n={n} C={c} heads={heads}")
+    return r, n, c, _mask_period(ops["mb"], x, r, n, heads)
+
+
+def _mask_args(mb, p):
+    return dtype_code(mb), *mb.stride(), p
+
+
+def attn_rows(x, ops, ln_stats_on=True, key_mask_on=True):
+    """bf16: #3's fused attention half (csrc/attn_sm90.cu) on ``x`` (R, N, C)
+    with ``ops`` its ``attn_ln`` operands: ``(y, x + y)``, y = proj(MSA(LN x)
+    + mb), qkv and the head outputs never in device memory.
+    ``ln_stats_on=False`` and ``key_mask_on=False`` plant the checks' faults
+    (the LayerNorm with mean 0 and rstd 1; the pad keys N..63 unmasked)."""
+    r, n, c, p = _cross_attn_operands(x, ops)
+    if not fused_attn(n, c, ops["heads"]):
+        raise ValueError(f"the fused attention half takes a head width of 32, C <= 256 and "
+                         f"n <= 64; got n={n} C={c} heads={ops['heads']}")
+    mb = ops["mb"]
+    y, out = torch.empty_like(x), torch.empty_like(x)
+    check(lib().mumpy_attn_rows(ptr(x), *(ptr(ops[k]) for k in _CROSS_ATTN), ptr(mb),
+                                *_mask_args(mb, p), ptr(y), ptr(out), r, n, c, ops["heads"],
+                                int(ln_stats_on), int(key_mask_on), stream_of(x)), "attn_rows")
+    return y, out
+
+
+def attn_ln_fwd(x, ops, ln_stats_on=True, key_mask_on=True):
+    """bf16: #3 in one call (csrc/swin_pair.cu): at the widths :func:`fused_attn`
+    takes one launch of the fused kernel (:func:`attn_rows`), wider the four
+    launches ``ln_rows``, the qkv product (Wqkv read as torch stores it), the
+    attention core and the projection writing y and x + y.  Arguments as
+    :func:`attn_rows`'s (``key_mask_on`` acts on the fused route only)."""
+    r, n, c, p = _cross_attn_operands(x, ops)
+    heads, mb = ops["heads"], ops["mb"]
+    scratch = torch.empty(lib().mumpy_attn_ln_scratch(r, n, c, heads), device=x.device,
+                          dtype=torch.uint8)
+    y, out = torch.empty_like(x), torch.empty_like(x)
+    check(lib().mumpy_attn_ln_fwd(
+        ptr(x), (ctypes.c_void_p * 6)(*(ptr(ops[k]) for k in _CROSS_ATTN)), ptr(mb),
+        *_mask_args(mb, p), ptr(y), ptr(out), ptr(scratch), r, n, c, heads, int(ln_stats_on),
+        int(key_mask_on), stream_of(x)), "attn_ln_fwd")
+    return y, out
+
+
+def ln_mlp_fwd(x, ops, ln_stats_on=True, gelu_on=True):
+    """bf16: #4 in one call (csrc/swin_pair.cu): ``x + fc2(gelu(fc1(LN x)))``
+    on ``x`` (M, C), one launch of the fused MLP (:func:`mlp_rows`) where
+    :func:`fused_mlp` takes the widths, else ``ln_rows`` and two products.
+    Arguments as :func:`mlp_rows`'s (``gelu_on`` acts on the fused route
+    only)."""
+    m, c = x.shape
+    require(x, "x", x, dtype=torch.bfloat16)
+    hidden = ops["w1"].shape[1]
+    for k, shape in zip(_SERVING_MLP, ((c,), (c,), (c, hidden), (hidden,), (hidden, c), (c,))):
+        require(ops[k], k, x, shape=shape)
+    if c % 8 or hidden % 8:
+        raise ValueError(f"ln_mlp takes widths that are multiples of 8, got C={c} "
+                         f"hidden={hidden}")
+    scratch = torch.empty(lib().mumpy_ln_mlp_scratch(m, c, hidden), device=x.device,
+                          dtype=torch.uint8)
+    y = torch.empty_like(x)
+    check(lib().mumpy_ln_mlp_fwd(
+        ptr(x), (ctypes.c_void_p * 6)(*(ptr(ops[k]) for k in _SERVING_MLP)), ptr(y),
+        ptr(scratch), m, c, hidden, int(ln_stats_on), int(gelu_on), stream_of(x)), "ln_mlp_fwd")
     return y
 
 

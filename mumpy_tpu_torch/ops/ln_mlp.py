@@ -1,14 +1,18 @@
 """Kernel ``ln_mlp``: ``x + fc2(gelu(fc1(LN(x))))`` over rows.
 
 Replaces ``mumpy_tpu/ops/pallas/ln_mlp.py:fused_ln_mlp`` (Pallas ``_kernel``),
-the tail of the cross-view blocks and of the global-ViT layers.  On the card
-it is two GEMMs (``cuda_lib.gemm``): LN prologue + bias + erf GELU into the
-(rows, M) hidden tensor, then bias + residual.  In bf16 both run on the
-persistent wgmma GEMM of ``csrc/gemm_sm90.cu``, the LayerNorm applied to its
-landed A tiles from the row statistics of one ``csrc/train_rows.cu`` launch;
-in f32 on ``csrc/gemm.cu``'s SIMT loop.  The hidden tensor makes one round
-trip through device memory (4C per row each way); fusing it away, as the TPU
-kernel does in VMEM, is later work.
+the tail of the cross-view blocks, which keeps the 4C hidden in VMEM.  The
+tail moves x in and out (4C bytes a row in bf16) and does 16C^2 flops a row,
+so it is bound by the tensor cores at every flagship width.  In bf16 it is
+one call of ``csrc/swin_pair.cu`` (``cuda_lib.ln_mlp_fwd``): at C <= 256
+(the flagship's stages 0 and 1) one launch of the fused MLP of
+``csrc/mlp_sm90.cu``, which normalises each 128-row tile once in shared
+memory and keeps the hidden on chip (as #1's MLP half runs); at wider C
+three launches (``ln_rows``, fc1 with GELU and fc2 with the residual on the
+persistent wgmma GEMM of ``csrc/gemm_sm90.cu``), where the hidden makes one
+round trip through device memory.  f32 composes those three here
+(:func:`mlp_sequence`, also the CPU model of the bf16 call) on
+``csrc/gemm.cu``'s SIMT loop.
 """
 
 from __future__ import annotations
@@ -47,13 +51,30 @@ def ln_mlp(x, ops):
 
 
 def launch_ln_mlp(x, ops):
-    """The kernel's launches: LN + fc1 + GELU, then fc2 + residual."""
+    """The kernel's launches: one C call in bf16 (``cuda_lib.ln_mlp_fwd``),
+    :func:`mlp_sequence` in f32.  ``ops["ln_stats_on"] = False`` and
+    ``ops["gelu_on"] = False`` (bf16) plant the checks' faults: the LayerNorm
+    with mean 0 and rstd 1; GELU dropped from the fused MLP."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    h, _ = cuda_lib.gemm(x2, ops["w1"], ops["b1"], ln=(ops["ln_g"], ops["ln_b"]),
-                         gelu=True)
-    _, out = cuda_lib.gemm(h, ops["w2"], ops["b2"], res=x2, want_y=False, want_out=True)
+    if x.dtype == torch.bfloat16:
+        out = cuda_lib.ln_mlp_fwd(x2, ops, ln_stats_on=ops.get("ln_stats_on", True),
+                                  gelu_on=ops.get("gelu_on", True))
+    else:
+        out = mlp_sequence(x2, ops)
     return out.reshape(shape)
+
+
+def mlp_sequence(x2, ops, ln_stats_on=True, gelu_on=True):
+    """The MLP half's launches on the rows ``x2``, composed here: in bf16 at
+    the widths ``cuda_lib.fused_mlp`` takes the fused MLP, else LN + fc1 +
+    GELU, then fc2 + residual."""
+    if x2.dtype == torch.bfloat16 and cuda_lib.fused_mlp(x2.shape[1], ops["w1"].shape[1]):
+        return cuda_lib.mlp_rows(x2, ops, ln_stats_on=ln_stats_on, gelu_on=gelu_on)
+    h, _ = cuda_lib.gemm(x2, ops["w1"], ops["b1"], ln=(ops["ln_g"], ops["ln_b"]), gelu=True,
+                         ln_stats_on=ln_stats_on)
+    _, out = cuda_lib.gemm(h, ops["w2"], ops["b2"], res=x2, want_y=False, want_out=True)
+    return out
 
 
 ln_mlp.launches = 0

@@ -30,7 +30,7 @@ import torch
 
 from . import cuda_lib
 from .attn_ln import attention_launches, attn_ln_operands, attn_ln_plain
-from .ln_mlp import ln_mlp_operands, ln_mlp_plain
+from .ln_mlp import ln_mlp_operands, ln_mlp_plain, mlp_sequence
 
 __all__ = ["swin_block", "swin_block_plain", "swin_block_operands", "block_sequence"]
 
@@ -79,16 +79,11 @@ def block_sequence(x2, ops, r, n, row_map=None, ln_stats_on=True, gelu_on=True):
     GEMM scatters its rows (and reads its residual) through it, so the block
     runs on shifted windows while its input and output stay unshifted
     (``swin_pair``)."""
-    a, m = ops["attn"], ops["mlp"]
+    a = ops["attn"]
     o = attention_launches(x2, a, r, n, a_map=row_map, ln_stats_on=ln_stats_on)
     _, x2 = cuda_lib.gemm(o, a["w_proj"], a["b_proj"], res=x2, want_y=False,
                           want_out=True, c_map=row_map)
-    if x2.dtype == torch.bfloat16 and cuda_lib.fused_mlp(x2.shape[1], m["w1"].shape[1]):
-        return cuda_lib.mlp_rows(x2, m, ln_stats_on=ln_stats_on, gelu_on=gelu_on)
-    h, _ = cuda_lib.gemm(x2, m["w1"], m["b1"], ln=(m["ln_g"], m["ln_b"]), gelu=True,
-                         ln_stats_on=ln_stats_on)
-    _, out = cuda_lib.gemm(h, m["w2"], m["b2"], res=x2, want_y=False, want_out=True)
-    return out
+    return mlp_sequence(x2, ops["mlp"], ln_stats_on=ln_stats_on, gelu_on=gelu_on)
 
 
 swin_block.launches = 0

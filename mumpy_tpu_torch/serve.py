@@ -1,13 +1,16 @@
 """Inference entry point of the port: localisation masks for a test split.
 
-Counterpart of ``test.py``; run as ``python -m mumpy_tpu_torch.serve``.  Loads
-``<results_dir>/<model_name>/weights_torch.pt`` (a state_dict of
-:class:`.models.mumpy.Mumpy`) when present, else warns and serves seeded
-random weights; thresholds sigmoid at 0.5 and writes
-``{frame:04d}_instance_00.png`` (0/255) under
+Counterpart of ``test.py``; run as ``python -m mumpy_tpu_torch.serve``.  Serves
+the model weights (``["model"]``) of the train CLI's checkpoint
+``<results_dir>/<model_name>/ckpt_<e>.pt`` of epoch ``-test_epoch``, or with
+the default -1 of the latest epoch, as ``test.py`` restores its checkpoints;
+with no checkpoint it warns and serves the JAX package's initialisation drawn
+from seed 0 (``utils.weight_port.jax_init_state_dict``), as ``test.py`` serves
+``PRNGKey(0)``'s.  It reads the clips of split ``-eval_split`` (default
+``test``) with the port's own :mod:`.data`, in this process, thresholds
+sigmoid at 0.5 and writes ``{frame:04d}_instance_00.png`` (0/255) under
 ``<results_dir>/<model_name>/masks_<dataset>/<seq>/``, which ``measure.py``
-scores unchanged.  Batches are padded to ``-batch_size`` at the tail.  The
-clips are read by the port's own :mod:`.data`, in this process.
+scores unchanged.  Batches are padded to ``-batch_size`` at the tail.
 
 It serves on the first CUDA device, through the hand-written kernels, unless
 ``-device cpu`` asks for the CPU (the kernels' plain versions); with
@@ -31,9 +34,8 @@ from .data import EvalClips, davis_config, youtubevos_config
 from .models.mumpy import Mumpy
 from .models.swin import KERNEL_SETS
 from .utils.serving import make_serving_forward
-from .utils.weight_port import random_state_dict
-
-CHECKPOINT = "weights_torch.pt"
+from .train import checkpoint as ckpt_lib
+from .utils.weight_port import jax_init_state_dict
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -46,6 +48,10 @@ def get_parser() -> argparse.ArgumentParser:
                         "val set (default: every sub-directory of -seq_dir)")
     p.add_argument("-year", default="2016", help="DAVIS: leave out sequences newer than this")
     p.add_argument("-results_dir", default="results")
+    p.add_argument("-test_epoch", default=-1, type=int,
+                   help="the checkpoint epoch to serve (default: the latest)")
+    p.add_argument("-eval_split", default="test",
+                   help="the split whose clips are served (test, val, train, train-val)")
     p.add_argument("-batch_size", default=6, type=int)
     p.add_argument("-imsize", default=224, type=int)
     p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
@@ -60,15 +66,19 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_model(cfg, model_dir: str) -> Mumpy:
+def load_model(cfg, model_dir: str, test_epoch: int = -1) -> Mumpy:
+    """The model with the weights of checkpoint ``test_epoch`` of
+    ``model_dir`` (-1: the latest), or with none there the JAX package's
+    initialisation from seed 0."""
     model = Mumpy(cfg)
-    path = os.path.join(model_dir, CHECKPOINT)
-    if os.path.exists(path):
-        model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
-        print(f"Loaded checkpoint from {path}")
+    state = (ckpt_lib.load_epoch(model_dir, test_epoch) if test_epoch >= 0
+             else ckpt_lib.load_latest(model_dir))
+    if state is not None:
+        model.load_state_dict(state["model"])
+        print(f"Loaded checkpoint of epoch {state['epoch']} from {model_dir}")
     else:
         print("WARNING: no checkpoint found; using random init")
-        model.load_state_dict(random_state_dict(model, seed=0))
+        model.load_state_dict(jax_init_state_dict(model, seed=0))
     return model
 
 
@@ -87,7 +97,7 @@ def main(argv=None) -> None:
     data_cfg = base(**overrides)
 
     model_dir = os.path.join(args.results_dir, args.model_name)
-    model = load_model(model_cfg, model_dir)
+    model = load_model(model_cfg, model_dir, args.test_epoch)
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     forward = make_serving_forward(model, device, dtype, kernel_set=args.kernel_set)
@@ -97,7 +107,7 @@ def main(argv=None) -> None:
     out_root = os.path.join(model_dir, f"masks_{args.dataset}")
     from PIL import Image
 
-    for batch in EvalClips(data_cfg).batches(bs):
+    for batch in EvalClips(data_cfg, args.eval_split).batches(bs):
         imgs = batch["image"]
         n = imgs.shape[0]
         if n < bs:  # pad the tail batch: every call sees the serving batch shape

@@ -16,9 +16,9 @@ start from the JAX package's initialisation drawn from ``-seed``
 (``utils.weight_port.jax_init_state_dict``), which ``-pretrained`` (a
 reference checkpoint) overlays by name, ``-resume`` (this run's latest or
 ``-epoch_resume`` checkpoint) or ``-transfer`` (another run's latest
-weights, fresh optimizer) replaces.  Each best
-checkpoint also writes ``<results_dir>/<model_name>/weights_torch.pt``, which
-``python -m mumpy_tpu_torch.serve`` loads.
+weights, fresh optimizer) replaces.  ``python -m mumpy_tpu_torch.serve``
+serves the checkpoints it writes, ``<results_dir>/<model_name>/ckpt_<e>.pt``:
+the latest, or one by ``-test_epoch``.
 """
 
 from __future__ import annotations

@@ -22,9 +22,7 @@ from typing import Optional
 import torch
 
 __all__ = ["save", "available_epochs", "load_epoch", "load_latest", "AsyncSaver",
-           "snapshot", "WEIGHTS"]
-
-WEIGHTS = "weights_torch.pt"  # the model state_dict that ``mumpy_tpu_torch.serve`` loads
+           "snapshot"]
 
 
 def _ckpt_path(model_dir: str, epoch: int) -> str:
@@ -46,22 +44,17 @@ def snapshot(state: dict) -> dict:
     return state
 
 
-def _write(model_dir: str, state: dict, epoch: int, extra: Optional[dict],
-           weights: bool) -> None:
+def _write(model_dir: str, state: dict, epoch: int, extra: Optional[dict]) -> None:
     os.makedirs(model_dir, exist_ok=True)
     _atomic_save({**state, "epoch": epoch, "extra": extra or {}},
                  _ckpt_path(model_dir, epoch))
-    if weights:
-        _atomic_save(state["model"], os.path.join(model_dir, WEIGHTS))
     with open(os.path.join(model_dir, f"meta_{epoch}.json"), "w") as f:
         json.dump({"epoch": epoch, **(extra or {})}, f)
 
 
-def save(model_dir: str, state: dict, epoch: int, extra: Optional[dict] = None,
-         weights: bool = False) -> None:
-    """Synchronous save of ``state`` ({"model", "optimizer", "step"}); with
-    ``weights`` the model's state_dict also goes to ``weights_torch.pt``."""
-    _write(model_dir, snapshot(state), epoch, extra, weights)
+def save(model_dir: str, state: dict, epoch: int, extra: Optional[dict] = None) -> None:
+    """Synchronous save of ``state`` ({"model", "optimizer", "step"})."""
+    _write(model_dir, snapshot(state), epoch, extra)
 
 
 class AsyncSaver:
@@ -75,14 +68,13 @@ class AsyncSaver:
         self._thread: Optional[threading.Thread] = None
         self._exc: Optional[BaseException] = None
 
-    def save(self, model_dir: str, state: dict, epoch: int, extra: Optional[dict] = None,
-             weights: bool = False) -> None:
+    def save(self, model_dir: str, state: dict, epoch: int, extra: Optional[dict] = None) -> None:
         self.wait()
         snap = snapshot(state)
 
         def run():
             try:
-                _write(model_dir, snap, epoch, extra, weights)
+                _write(model_dir, snap, epoch, extra)
             except BaseException as e:  # raised at the next save / wait
                 self._exc = e
 

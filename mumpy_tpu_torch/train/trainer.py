@@ -13,8 +13,8 @@ and val steps and the reference's epoch loop.
   operands are built from the (cast) parameters for the pass and dropped
   after it.
 * ``train_loop``: per-epoch train and val passes, smoothed val metric,
-  best-checkpoint saves (which also write ``weights_torch.pt`` for
-  ``mumpy_tpu_torch.serve``), patience with a best-checkpoint reload that
+  best-checkpoint saves (``mumpy_tpu_torch.serve`` serves the latest
+  checkpoint, or one by epoch), patience with a best-checkpoint reload that
   fires at most once, forced saves at ``max_epoch // 2 - 1`` and
   ``max_epoch - 1``, and scalars every ``print_every`` steps.
 
@@ -282,8 +282,7 @@ def train_loop(state: TrainState, loaders: dict, loop_cfg: TrainLoopConfig,
             continue
         if mt < best_val_loss - loop_cfg.min_delta:
             best_val_loss = mt
-            saver.save(model_dir, state.state_dict(), e, extra={"best_val_loss": best_val_loss},
-                       weights=True)
+            saver.save(model_dir, state.state_dict(), e, extra={"best_val_loss": best_val_loss})
             acc_patience = 0
         else:
             acc_patience += 1

@@ -16,6 +16,7 @@ from mumpy_tpu_torch.configs import tiny_config
 from mumpy_tpu.utils.metrics import evaluate_dirs
 from mumpy_tpu_torch import serve
 from mumpy_tpu_torch.models.mumpy import Mumpy
+from mumpy_tpu_torch.train import checkpoint as ckpt
 from mumpy_tpu_torch.utils.weight_port import random_state_dict
 from torch_cases import one_torch_thread  # noqa: F401  (autouse)
 
@@ -59,11 +60,9 @@ def test_serve_writes_scoreable_masks(data, tmp_path, capsys):
 
 def test_serve_loads_torch_checkpoint(data, tmp_path, capsys):
     model = Mumpy(tiny_config(32))
-    model.load_state_dict(random_state_dict(model, seed=5))
-    os.makedirs(tmp_path / "run")
-    torch.save(model.state_dict(), tmp_path / "run" / serve.CHECKPOINT)
+    ckpt.save(str(tmp_path / "run"), {"model": random_state_dict(model, seed=5)}, 2)
     out = _serve(data, tmp_path, "--bf16")
-    assert "Loaded checkpoint" in capsys.readouterr().out
+    assert "Loaded checkpoint of epoch 2" in capsys.readouterr().out
     assert len(os.listdir(out / "boat")) == SEQS["boat"]
 
 

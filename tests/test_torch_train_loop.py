@@ -10,8 +10,8 @@
 * The CLI: ``python -m mumpy_tpu_torch.train --tiny -imsize 32 -device cpu``,
   warm-started from a reference-style checkpoint (``-pretrained``), takes
   two epochs on synthetic clips (two inpainting streams), writes
-  checkpoints, metrics and ``weights_torch.pt``, and
-  ``python -m mumpy_tpu_torch.serve`` then serves those weights; without
+  checkpoints and metrics, and ``python -m mumpy_tpu_torch.serve`` then
+  serves the latest checkpoint's weights; without
   ``-device cpu`` and with no card the train CLI refuses to run.
 """
 
@@ -47,7 +47,7 @@ def _state(seed):
 def test_checkpoints_save_and_load(tmp_path):
     assert ckpt.load_latest(str(tmp_path)) is None
     a, b = _state(0), _state(1)
-    ckpt.save(str(tmp_path), a.state_dict(), 3, extra={"best_val_loss": 0.5}, weights=True)
+    ckpt.save(str(tmp_path), a.state_dict(), 3, extra={"best_val_loss": 0.5})
     ckpt.save(str(tmp_path), b.state_dict(), 10)
     assert ckpt.available_epochs(str(tmp_path)) == [3, 10]
     assert json.load(open(tmp_path / "meta_3.json")) == {"epoch": 3, "best_val_loss": 0.5}
@@ -60,8 +60,8 @@ def test_checkpoints_save_and_load(tmp_path):
         assert torch.equal(c.model.state_dict()[k], v)
     assert torch.equal(c.optimizer.buffers["weight"]["trace"],
                        a.optimizer.buffers["weight"]["trace"])
-    weights = torch.load(tmp_path / ckpt.WEIGHTS, weights_only=True)
-    assert torch.equal(weights["weight"], a.model.weight)
+    assert sorted(os.listdir(tmp_path)) == ["ckpt_10.pt", "ckpt_3.pt", "meta_10.json",
+                                            "meta_3.json"]
 
 
 def test_async_saver_writes_the_state_of_the_call(tmp_path):
@@ -100,8 +100,8 @@ def _run_loop(monkeypatch, tmp_path, val_losses, **loop_kwargs):
         "total": torch.tensor(val_losses[epoch["i"]]), "iou": 0.2, "focal": 0.3})
 
     class Saver:
-        def save(self, d, state, e, extra=None, weights=False):
-            events.append(("save", e, weights))
+        def save(self, d, state, e, extra=None):
+            events.append(("save", e, round(float(extra["best_val_loss"]), 6)))
 
         def wait(self):
             pass
@@ -127,11 +127,11 @@ def _run_loop(monkeypatch, tmp_path, val_losses, **loop_kwargs):
 @pytest.mark.parametrize("scenario", ["best_and_forced", "reload", "reload_once", "no_reload"])
 def test_loop_bookkeeping(monkeypatch, tmp_path, scenario):
     if scenario == "best_and_forced":
-        # improving every epoch: best saves (with weights) plus the forced
-        # saves at max_epoch / 2 - 1 and max_epoch - 1
+        # improving every epoch: best saves plus the forced saves at
+        # max_epoch / 2 - 1 and max_epoch - 1
         events, _ = _run_loop(monkeypatch, tmp_path, [0.9, 0.8, 0.7, 0.6])
-        assert events == [("save", 0, True), ("save", 1, True), ("save", 1, False),
-                          ("save", 2, True), ("save", 3, True), ("save", 3, False)]
+        assert events == [("save", 0, 0.9), ("save", 1, 0.8), ("save", 1, 0.8),
+                          ("save", 2, 0.7), ("save", 3, 0.6), ("save", 3, 0.6)]
     elif scenario == "reload":
         events, out = _run_loop(monkeypatch, tmp_path, [0.5, 0.9, 0.9, 0.9])
         assert ("reload",) in events and out.tag == "best"
@@ -171,14 +171,15 @@ def test_train_cli_then_serve(tmp_path, capsys, monkeypatch):
     assert f"Warm start: {n_params} tensors" in out
     assert "Training on cpu in f32, 2 clips x 2 streams per step" in out
     run = tmp_path / "res" / "run"
-    assert {"ckpt_0.pt", "ckpt_1.pt", "metrics.jsonl", ckpt.WEIGHTS} <= set(os.listdir(run))
+    assert {"ckpt_0.pt", "ckpt_1.pt", "metrics.jsonl"} <= set(os.listdir(run))
+    assert not any(name.startswith("weights") for name in os.listdir(run))
     records = [json.loads(line) for line in open(run / "metrics.jsonl")]
     train = [r["total"] for r in records if r["split"] == "train"]
     assert len(train) == 4 and np.isfinite(train).all()
     serve.main(["--tiny", "-imsize", "32", "-dataset", "davis", "-seq_dir",
                 str(tmp_path / "vi"), "-results_dir", str(tmp_path / "res"), "-model_name",
                 "run", "-batch_size", "4", "-device", "cpu"])
-    assert "Loaded checkpoint" in capsys.readouterr().out
+    assert f"Loaded checkpoint of epoch 1 from {run}" in capsys.readouterr().out
     assert len(os.listdir(run / "masks_davis" / "bear")) == 5
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):

@@ -322,11 +322,11 @@ def _mask(mb, P, H, N, strides, mb_dtype):
 
 
 class ModelLib:
-    """What csrc/gemm.cu, gemm_sm90.cu, mlp_sm90.cu, window_attention.cu,
-    window_attention_bwd.cu, train_rows.cu, wgrad.cu, cva_sample.cu and
-    vit3_attention.cu compute, on the raw buffers the wrappers pass, and the
-    launch sequences of swin_pair.cu and swin_block_train.cu, composed from
-    those."""
+    """What csrc/gemm.cu, gemm_sm90.cu, mlp_sm90.cu, attn_sm90.cu,
+    window_attention.cu, window_attention_bwd.cu, train_rows.cu, wgrad.cu,
+    cva_sample.cu and vit3_attention.cu compute, on the raw buffers the
+    wrappers pass, and the launch sequences of swin_pair.cu and
+    swin_block_train.cu, composed from those."""
 
     def mumpy_gemm(self, x, w, bias, g, b, res, a_map, c_map, y, out, row_scale, aux,
                    aux_out, M, N, K, a_sum, a_seg, act, map_len, scale_div, dtype, stream):
@@ -577,6 +577,81 @@ class ModelLib:
         hid = (F.gelu(f1) if gelu_on else f1).to(bf).float()  # gelu_on = 0: the planted fault
         v = hid @ _view(w2, hidden * C, bf).float().reshape(hidden, C) + _view(b2, C, bf).float()
         _view(y, M * C, bf).copy_((X + v.to(bf).float()).to(bf).reshape(-1))
+        return 0
+
+    def mumpy_attn_rows(self, x, g, b, w_qkv, b_qkv, w_proj, b_proj, mb, mb_dtype, s0, s1, s2,
+                        s3, P, y, out, R, N, C, H, ln_stats_on, key_mask_on, stream):
+        # csrc/attn_sm90.cu: bf16, head width 32, C <= 256, N <= 64, 16-byte
+        # aligned operands, outputs apart from x (the kernel refuses others);
+        # rounded where the kernel rounds: h, q, k, v, P, o, y, out.  Each
+        # window reads 64 rows, its N and the rows after it (zero past the
+        # last), and normalises them all; keys >= N are masked unless
+        # key_mask_on = 0, the planted fault
+        assert C % 32 == 0 and C <= 256 and C == 32 * H and 0 < N <= 64 and R % P == 0
+        assert all(p % 16 == 0 for p in (x, g, b, w_qkv, b_qkv, w_proj, b_proj, y, out))
+        assert len({x, y, out}) == 3
+        bf = torch.bfloat16
+        X = _view(x, R * N * C, bf).reshape(R * N, C).float()
+        rows = torch.arange(R)[:, None] * N + torch.arange(64)
+        T = torch.cat([X, torch.zeros(64, C)])[rows]  # (R, 64, C)
+        mu = T.mean(-1, keepdim=True)
+        rs = torch.rsqrt(((T - mu) ** 2).mean(-1, keepdim=True) + 1e-5)
+        if not ln_stats_on:  # the planted fault: mean 0, rstd 1
+            mu, rs = torch.zeros_like(mu), torch.ones_like(rs)
+        h = ((T - mu) * rs * _view(g, C, bf).float() + _view(b, C, bf).float()).to(bf).float()
+        qkv = (h @ _view(w_qkv, 3 * C * C, bf).float().reshape(3 * C, C).t()
+               + _view(b_qkv, 3 * C, bf).float()).to(bf).float()
+        q, k, v = qkv.reshape(R, 64, 3, H, 32).unbind(2)  # (R, 64, H, 32)
+        s = torch.einsum("rihd,rjhd->rhij", q, k) * 32**-0.5
+        m = torch.zeros(R, H, 64, 64)
+        m[:, :, :N, :N] = _mask(mb, P, H, N, (s0, s1, s2, s3), mb_dtype)[torch.arange(R) % P]
+        if key_mask_on:
+            m[..., N:] = -1e30
+        prob = torch.softmax(s + m, -1).to(bf).float()
+        o = torch.einsum("rhij,rjhd->rihd", prob, v).reshape(R, 64, C)[:, :N].to(bf).float()
+        yv = (o @ _view(w_proj, C * C, bf).float().reshape(C, C)
+              + _view(b_proj, C, bf).float()).to(bf)
+        _view(y, R * N * C, bf).copy_(yv.reshape(-1))
+        _view(out, R * N * C, bf).copy_((X.reshape(R, N, C) + yv.float()).to(bf).reshape(-1))
+        return 0
+
+    # csrc/swin_pair.cu's #3 and #4 calls: the fused kernel where it takes
+    # the widths, else the sequences ops/attn_ln.py and ops/ln_mlp.py compose
+    def mumpy_attn_ln_scratch(self, R, N, C, H):
+        return 256
+
+    def mumpy_attn_ln_fwd(self, x, w, mb, mb_dtype, s0, s1, s2, s3, P, y, out, scratch, R, N, C,
+                          H, ln_stats_on, key_mask_on, stream):
+        from mumpy_tpu_torch.ops import attn_ln
+
+        if N <= 64 and C <= 256 and C == 32 * H:
+            return self.mumpy_attn_rows(x, *w, mb, mb_dtype, s0, s1, s2, s3, P, y, out, R, N, C,
+                                        H, ln_stats_on, key_mask_on, stream)
+        bf = torch.bfloat16
+        shapes = ((C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,))
+        ws = [_view(w[i], math.prod(shape), bf).reshape(shape) for i, shape in enumerate(shapes)]
+        ops = {"ln_g": ws[0], "ln_b": ws[1], "w_qkv": ws[2].t(), "b_qkv": ws[3],
+               "w_proj": ws[4], "b_proj": ws[5], "heads": H,
+               "mb": _mask(mb, P, H, N, (s0, s1, s2, s3), mb_dtype).to(DTYPES[mb_dtype])}
+        got = attn_ln.attn_sequence(_view(x, R * N * C, bf).reshape(R * N, C), ops, R, N,
+                                    ln_stats_on=bool(ln_stats_on))
+        _view(y, R * N * C, bf).copy_(got[0].reshape(-1))
+        _view(out, R * N * C, bf).copy_(got[1].reshape(-1))
+        return 0
+
+    def mumpy_ln_mlp_scratch(self, M, C, hidden):
+        return 256
+
+    def mumpy_ln_mlp_fwd(self, x, w, y, scratch, M, C, hidden, ln_stats_on, gelu_on, stream):
+        from mumpy_tpu_torch.ops import ln_mlp
+
+        bf = torch.bfloat16
+        shapes = ((C,), (C,), (C, hidden), (hidden,), (hidden, C), (C,))
+        ws = [_view(w[i], math.prod(shape), bf).reshape(shape) for i, shape in enumerate(shapes)]
+        ops = dict(zip(("ln_g", "ln_b", "w1", "b1", "w2", "b2"), ws))
+        got = ln_mlp.mlp_sequence(_view(x, M * C, bf).reshape(M, C), ops,
+                                  ln_stats_on=bool(ln_stats_on), gelu_on=bool(gelu_on))
+        _view(y, M * C, bf).copy_(got.reshape(-1))
         return 0
 
     # csrc/swin_block_train.cu's attn_ln_train calls, the sequences
