@@ -29,7 +29,10 @@ Phases (any failure exits non-zero, before the result line):
    from the fused MLP (every ``swin_block`` and ``ln_mlp`` instance at
    C <= 256, whose MLP half runs on ``csrc/mlp_sm90.cu``), the pad keys
    N..63 left unmasked in the fused attention half (every ``attn_ln``
-   instance at C <= 256, on ``csrc/attn_sm90.cu``), and vit3's scores zeroed
+   instance at C <= 256, on ``csrc/attn_sm90.cu``) and in the fused CVA core
+   (every ``cva`` instance at C <= 256, on ``csrc/cva_sm90.cu``), the CVA's
+   bilinear weights ignored (every ``cva`` instance) and its ratio fold
+   dropped (every ``cva`` instance of ratio 3), and vit3's scores zeroed
    (uniform attention; required on the seeded case, see
    ``planted_faults``);
 4. the main path: the flagship forward through ``make_serving_forward`` with
@@ -42,8 +45,10 @@ Phases (any failure exits non-zero, before the result line):
 5. bf16 frames/s of both paths at batch 32 (CUDA events after warm-up) and
    the peak device memory;
 6. each kernel's time per batch-32 bf16 forward beside its plain version's
-   (``attn_ln`` and ``ln_mlp`` also beside the launches the port made for
-   them from Python before they became one C call, ``parent_route``),
+   (``attn_ln``, ``ln_mlp``, ``cva`` and ``vit3`` also beside the launches
+   the port made for them from Python before they became one C call,
+   ``parent_route``; ``vit3`` beside ``torch._transformer_encoder_layer_fwd``,
+   the one PyTorch call that computes it, its ``library_ms``),
    and the least time the card could take for the same work (``bound_ms``:
    the larger of the bytes over 3.35 TB/s and the flops over 989 TFLOP/s,
    the H100 SXM's HBM rate and dense bf16 tensor-core peak), per instance;
@@ -51,13 +56,16 @@ Phases (any failure exits non-zero, before the result line):
    ``--trace``): the batch-32 bf16 forward under ``torch.profiler`` (device
    ms against its untraced ms: the idle share; launches by kernel name), the
    launches by name of every ``swin_pair``, ``swin_block``, ``attn_ln`` and
-   ``ln_mlp`` instance of it, each ``swin_block``, ``attn_ln`` and ``ln_mlp``
-   instance's launches by stage and view with its GEMM launches by product
+   ``ln_mlp`` instance of it, each ``swin_block``, ``attn_ln``, ``ln_mlp``
+   and ``cva`` instance's launches by stage and view (``cva`` by direction)
+   and one ``vit3`` layer's, with the GEMM launches by product
    (``block_breakdown``), the launches by name of
    ``ln_mlp_train``'s and ``attn_ln_train``'s forward and backward in one
    12-clip step, the persistent GEMM's time beside ``torch.matmul``'s on
-   each product shape of ``swin_pair`` and ``ln_mlp_train``
-   (``product_yardstick``), the fused MLP's beside the two products it
+   each product shape of ``swin_pair``, ``vit3`` and ``ln_mlp_train``
+   (``product_yardstick``), one ``vit3`` layer's one call beside its seven
+   launches from Python and ``torch._transformer_encoder_layer_fwd``
+   (``vit3_yardstick``), the fused MLP's beside the two products it
    replaced and ``torch.matmul`` -> GELU -> ``torch.matmul`` on #1's and
    #4's C <= 256 instances (``mlp_yardstick``), and the fused attention
    half's beside its four launches and ``layer_norm`` -> ``linear`` ->
@@ -194,10 +202,10 @@ KERNEL_INFO = {  # name -> (CUDA sources it launches, TPU kernel it replaces)
                  "window_attention.cu"], "mumpy_tpu/ops/pallas/attn_ln.py:51"),
     "ln_mlp": (["swin_pair.cu", "mlp_sm90.cu", "gemm_sm90.cu", "train_rows.cu"],
                "mumpy_tpu/ops/pallas/ln_mlp.py:40"),
-    "cva": (["gemm_sm90.cu", "gemm.cu", "cva_sample.cu", "window_attention.cu"],
-            "mumpy_tpu/ops/pallas/cva.py:79"),
-    "vit3": (["gemm_sm90.cu", "train_rows.cu", "vit3_attention.cu"],
-             "mumpy_tpu/ops/pallas/vit3.py:77"),
+    "cva": (["cva_sm90.cu", "attn_sm90.cuh", "gemm_sm90.cu", "cva_sample.cu",
+             "window_attention.cu"], "mumpy_tpu/ops/pallas/cva.py:79"),
+    "vit3": (["vit3_sm90.cu", "gemm_sm90.cu", "train_rows.cu", "swin_pair.cu",
+              "vit3_attention.cu"], "mumpy_tpu/ops/pallas/vit3.py:77"),
 }
 RESIDUAL_KERNELS = ("swin_block", "swin_pair", "ln_mlp", "vit3")  # out = x + branch
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16 tensor cores, HBM3
@@ -280,30 +288,40 @@ def identity_map(ops):
 
 
 def uniform_attention(ops):
-    """vit3 operands with the query projection zeroed, so every score is 0
-    and the attention uniform: the planted fault of vit3."""
+    """vit3 operands with the query projection zeroed (in both layouts the
+    operands hold it), so every score is 0 and the attention uniform: the
+    planted fault of vit3."""
     a = ops["attn"]
     c = a["w_proj"].shape[0]
-    w, b = a["w_qkv"].clone(), a["b_qkv"].clone()
+    w, rows, b = a["w_qkv"].clone(), a["w_qkv_rows"].clone(), a["b_qkv"].clone()
     w[:, :c] = 0
+    rows[:c] = 0
     b[:c] = 0
-    return {**ops, "attn": {**a, "w_qkv": w, "b_qkv": b}}
+    return {**ops, "attn": {**a, "w_qkv": w, "w_qkv_rows": rows, "b_qkv": b}}
 
 
-def planted_faults(name, ops):
+def planted_faults(name, ops, ratio=1):
     """(label, operands, whether the flagship forward's own inputs must show
     it) of every planted fault that applies to an instance (the LayerNorm
     one on the bf16 sequences of ``swin_pair``, ``swin_block``, ``attn_ln``
     (required on the seeded inputs) and ``ln_mlp``; GELU dropped on the
     ``swin_block`` and ``ln_mlp``
     instances whose MLP half runs on the fused kernel, C <= 256; the pad keys
-    unmasked on the ``attn_ln`` instances on the fused attention half, C <=
-    256).  Uniform
+    unmasked on the ``attn_ln`` and ``cva`` instances on their fused kernels,
+    C <= 256; on every ``cva`` instance the bilinear weights ignored, and on
+    those of ``ratio`` 3 the fold dropped).  Uniform
     attention is required to show only on the seeded inputs: the random-weight
     flagship's ViT input has three nearly alike time slices (views 1 and 2
     are tiled over time), so its own softmax is nearly uniform already
     (PERF.md, Findings PR 3)."""
     faults = []
+    if name == "cva":
+        faults.append(("bilinear weights ignored", {**ops, "sample_on": False}, True))
+        if ratio > 1:
+            faults.append(("fold dropped", {**ops, "fold_on": False}, True))
+        if fused_route(name, ops):
+            faults.append(("pad keys unmasked", {**ops, "key_mask_on": False}, True))
+        return faults
     if mask_bias_shape(ops):
         faults.append(("mask+bias zeroed", drop_mask_bias(ops), True))
     if name == "swin_pair":
@@ -326,9 +344,13 @@ def planted_faults(name, ops):
 def fused_route(name, ops):
     """Whether an instance's bf16 launches take a fused kernel: the MLP half
     of ``swin_block`` and ``ln_mlp`` (``csrc/mlp_sm90.cu``), the attention
-    half of ``attn_ln`` (``csrc/attn_sm90.cu``)."""
+    half of ``attn_ln`` (``csrc/attn_sm90.cu``), the core of ``cva``
+    (``csrc/cva_sm90.cu``)."""
     from mumpy_tpu_torch.ops import cuda_lib
 
+    if name == "cva":
+        return cuda_lib.fused_cva(ops["ws"] ** 2, ops["w_proj"].shape[0], ops["heads"],
+                                  ops["groups"], ops["ws"])
     if name == "attn_ln":
         return cuda_lib.fused_attn(ops["mb"].shape[-1], ops["w_proj"].shape[0], ops["heads"])
     c, hidden = (ops["mlp"] if name == "swin_block" else ops)["w1"].shape
@@ -336,10 +358,11 @@ def fused_route(name, ops):
 
 
 def tensors_of(obj):
-    """The tensors of the operands, each weight once (``w_qkv_rows`` is the
-    qkv weight again, in the layout the fused attention half reads)."""
+    """The tensors of the operands, each weight once (``w_qkv_rows``,
+    ``w_q_rows`` and ``w_kv_rows`` are weights again, in the layout the bf16
+    calls read)."""
     if isinstance(obj, dict):
-        return [t for k, v in obj.items() if k != "w_qkv_rows" for t in tensors_of(v)]
+        return [t for k, v in obj.items() if not k.endswith("_rows") for t in tensors_of(v)]
     if isinstance(obj, (tuple, list)):
         return [t for v in obj for t in tensors_of(v)]
     return [obj] if torch.is_tensor(obj) else []
@@ -1371,7 +1394,7 @@ def serving_trace(model, dev, clip32, smi):
             x, ops = args
             product_yardstick(f"swin_pair x{count}", x.shape[0] * x.shape[1], x.shape[2],
                               ops["a"]["mlp"]["w1"].shape[1], smi, row_map=ops["map"])
-    for name in ("swin_pair", "swin_block", "attn_ln", "ln_mlp"):
+    for name in ("swin_pair", "swin_block", "attn_ln", "ln_mlp", "cva", "vit3"):
         calls = [(getattr(cap.kernels[name], name), args, count)
                  for (kname, *_), (args, count) in cap.instances.items() if kname == name]
         with torch.inference_mode():
@@ -1379,9 +1402,16 @@ def serving_trace(model, dev, clip32, smi):
                              f"{name}, one bf16 batch-32 forward's instances", smi)
     with torch.inference_mode():
         for name in BLOCK_PRODUCTS:
-            block_breakdown(name, [(args, count)
+            block_breakdown(name, [(args, 1 if name == "vit3" else count)  # #6: one layer
                                    for (kname, *_), (args, count) in cap.instances.items()
                                    if kname == name], smi)
+        for (kname, *_), (args, count) in cap.instances.items():
+            if kname == "vit3":  # one layer's four products and the layer beside torch's
+                x, ops = args
+                c = x.shape[-1]
+                product_yardstick(f"vit3 x{count}", x.numel() // c, c,
+                                  ops["mlp"]["w1"].shape[1], smi)
+                vit3_yardstick(f"vit3 x{count}", x, ops, smi)
         for (kname, *_), (args, count) in cap.instances.items():
             if kname == "swin_block" and fused_route(kname, args[1]):
                 x, ops = args
@@ -1416,43 +1446,57 @@ def sequence_launches(fn):
 
 # the GEMM launches of each kernel's bf16 sequence, in the order it runs them
 BLOCK_PRODUCTS = {"swin_block": ("qkv", "proj", "fc1", "fc2"), "attn_ln": ("qkv", "proj"),
-                  "ln_mlp": ("fc1", "fc2")}
+                  "ln_mlp": ("fc1", "fc2"), "vit3": ("qkv", "proj", "fc1", "fc2"),
+                  "cva": ("q", "kv", "proj")}
+# kernel name fragment -> label in the breakdowns, first match wins
+LAUNCH_LABELS = (("ln_rows", "ln_rows"), ("vit3_attention", "attention"),
+                 ("window_attention", "attention"), ("mlp_rows", "fused mlp"),
+                 ("attn_rows", "fused attention"), ("vit3_qkv_attn", "fused qkv+attention"),
+                 ("cva_rows", "fused cva"), ("cva_sample", "sample"),
+                 ("gemm_bf16_fold", "fold+proj (wmma)"))
+
+
+def instance_label(name, args):
+    """Where an instance sits in the flagship: its stage and views (#5: the
+    CVA's direction, by its ratio), or #6's layer."""
+    x = args[0]
+    c = x.shape[-1]
+    if name == "vit3":
+        return f"ViT layer ({x.numel() // c} rows x C {c})"
+    stage, views = BLOCK_STAGES.get(c, ("?", "?"))
+    if name == "cva":
+        ratio = args[1].shape[0] // x.shape[0]
+        views = "v2<-v3, ratio 3" if ratio == 3 else f"v1<-v2, ratio {ratio}"
+        return f"stage {stage} {views} ({x.shape[0]} query windows x C {c})"
+    return f"stage {stage} {views} ({x.numel() // c} rows x C {c})"
 
 
 def block_breakdown(name, instances, smi):
-    """#1 (``swin_block``), #3 (``attn_ln``) or #4 (``ln_mlp``) instance by
-    instance (stage and view), each as often as one bf16 batch-32 forward
-    runs it: the device ms of its GEMM launches by product (in the order the
-    kernel runs them, ``BLOCK_PRODUCTS``), of its ``ln_rows`` launches, its
-    attention core and, where it runs one, its fused MLP or fused attention
-    half."""
+    """#1 (``swin_block``), #3 (``attn_ln``), #4 (``ln_mlp``), #5 (``cva``)
+    or #6 (``vit3``) instance by instance (stage and view; #5 by direction),
+    each as often as ``instances`` says: the device ms of its GEMM launches
+    by product (in the order the kernel runs them, ``BLOCK_PRODUCTS``) and
+    of each of its other launches by name (``LAUNCH_LABELS``): ``ln_rows``,
+    the attention core, the sampler and, where it runs one, a fused
+    kernel."""
     from importlib import import_module
 
     kernel = getattr(import_module(f"mumpy_tpu_torch.ops.{name}"), name)
     products = BLOCK_PRODUCTS[name]
     for args, count in instances:
-        x = args[0]
-        c = x.shape[-1]
         kernel(*args)  # warm-up
         parts, gemms = {}, 0
         for kname, ms in sequence_launches(lambda: kernel(*args)):
             if "gemm_rows_kernel" in kname:
                 label = products[gemms] if gemms < len(products) else "gemm"
                 gemms += 1
-            elif "ln_rows" in kname:
-                label = "ln_rows"
-            elif "window_attention" in kname:
-                label = "attention"
-            elif "mlp_rows" in kname:
-                label = "fused mlp"
-            elif "attn_rows" in kname:
-                label = "fused attention"
             else:
-                label = kname[:40]
+                label = next((lb for frag, lb in LAUNCH_LABELS if frag in kname), kname[:40])
+                if label == "fused qkv+attention":  # #6's qkv product runs inside it
+                    gemms += products[gemms:gemms + 1] == ("qkv",)
             ms0, n0 = parts.get(label, (0.0, 0))
             parts[label] = (ms0 + count * ms, n0 + count)
-        stage, views = BLOCK_STAGES.get(c, ("?", "?"))
-        log(f"[block] {name} stage {stage} {views} ({x.numel() // c} rows x C {c}) x{count}: "
+        log(f"[block] {name} {instance_label(name, args)} x{count}: "
             f"device {sum(t for t, _ in parts.values()):.3f} ms in "
             f"{sum(k for _, k in parts.values())} launches; "
             + ", ".join(f"{label} {t:.3f} ms x{k}" for label, (t, k) in parts.items())
@@ -1506,12 +1550,23 @@ def product_yardstick(label, rows, c, hidden, smi, row_map=None, kmajor=False, d
 
 
 def parent_route(name, args):
-    """#3's (``attn_ln``) and #4's (``ln_mlp``) bf16 launches as the port made
-    them from Python before they became one C call: ``ln_rows``, qkv, the
-    attention core and proj; ``ln_rows``, fc1 with GELU, fc2 with the
-    residual."""
+    """#3's (``attn_ln``), #4's (``ln_mlp``), #5's (``cva``) and #6's
+    (``vit3``) bf16 launches as the port made them from Python before they
+    became one C call: ``ln_rows``, qkv, the attention core and proj;
+    ``ln_rows``, fc1 with GELU, fc2 with the residual; #5's five
+    (``ops/cva.py:cva_sequence``: its fold now in the attention core, where
+    the parent's ran on ``csrc/gemm.cu``'s wmma loop); #6's seven
+    (``ops/vit3.py:vit3_sequence``)."""
     from mumpy_tpu_torch.ops import cuda_lib
 
+    if name == "vit3":
+        from mumpy_tpu_torch.ops.vit3 import vit3_sequence
+
+        return vit3_sequence(*args)
+    if name == "cva":
+        from mumpy_tpu_torch.ops.cva import cva_sequence
+
+        return cva_sequence(*args)
     x, ops = args
     x2 = x.reshape(-1, x.shape[-1])
     if name == "attn_ln":
@@ -1554,6 +1609,54 @@ def mlp_yardstick(label, rows, mlp, smi):
         f"of peak; {bare:.4f} ms without GELU), two products {two:.4f} ms, torch.matmul -> "
         f"gelu -> torch.matmul {mm:.4f} ms, ratio {ms / mm:.2f}; max |fused - two products| "
         f"{err:.3g} ({smi})")
+
+
+def vit3_library(x, ops):
+    """A closure computing #6 on ``x`` (3, R, C) with its operands ``ops`` by
+    one PyTorch call, ``torch._transformer_encoder_layer_fwd`` (the fast path
+    of ``nn.TransformerEncoderLayer(norm_first=True, activation="gelu",
+    batch_first=True, dropout=0)`` in inference), on the token-major (R, 3, C)
+    rows, and the time-major (3, R, C) view of what it returns.  The
+    transpose and the weights in torch's (out, in) layout are made here,
+    outside the closure: the yardstick of #6's ``library_ms``, which the port
+    never calls."""
+    a, m = ops["attn"], ops["mlp"]
+    c = x.shape[-1]
+    tokens = x.transpose(0, 1).contiguous()
+    w_qkv, w_proj, w1, w2 = (w.t().contiguous() for w in (a["w_qkv"], a["w_proj"], m["w1"],
+                                                          m["w2"]))
+
+    def call():
+        return torch._transformer_encoder_layer_fwd(
+            tokens, c, a["heads"], w_qkv, a["b_qkv"], w_proj, a["b_proj"], True, True, 1e-5,
+            a["ln_g"], a["ln_b"], m["ln_g"], m["ln_b"], w1, m["b1"], w2, m["b2"], None, None)
+
+    return call, lambda out: out.transpose(0, 1)
+
+
+def vit3_yardstick(label, x, ops, smi):
+    """#6 on one layer's bf16 operands at the forward's shape ``x`` (3, R, C):
+    the kernel's launches (uncounted) beside the seven launches from Python
+    it replaced (``parent_route``) and beside ``torch._transformer_encoder_
+    layer_fwd`` (``vit3_library``; the transpose to token-major rows is
+    outside the timed region), with each one's output against the kernel's."""
+    from mumpy_tpu_torch.ops import vit3
+
+    call, back = vit3_library(x, ops)
+    got = vit3.launch_vit3(x, ops).float()
+    err_lib = (back(call()).float() - got).abs().max().item()
+    err_par = (parent_route("vit3", (x, ops)).float() - got).abs().max().item()
+    ms = cuda_ms(lambda: vit3.launch_vit3(x, ops), reps=10)
+    par = cuda_ms(lambda: parent_route("vit3", (x, ops)), reps=10)
+    lib = cuda_ms(call, reps=10)
+    flops, nbytes = work("vit3", (x, ops))
+    log(f"[product] {label} one layer ({x.shape[1]} rows x 3 x C {x.shape[2]}): kernel "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * flops / ms / 1e9 / (PEAK_FLOPS / 1e12):.1f}% of peak; bound "
+        f"{max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3:.4f} ms), the seven launches "
+        f"from Python {par:.4f} ms, torch._transformer_encoder_layer_fwd {lib:.4f} ms, ratio "
+        f"{ms / lib:.2f}; max |library - kernel| {err_lib:.3g}, |seven launches - kernel| "
+        f"{err_par:.3g} ({smi})")
 
 
 def attn_yardstick(label, shape, ops, smi):
@@ -1832,7 +1935,8 @@ def main() -> int:
                 e32, e16 = max(e32, ea / s), max(e16, eb / s)
                 errs[name] = max(errs[name], ea)
             control = ""
-            for label, bad_ops, required in planted_faults(name, ops16):
+            ratio = acts[1].shape[0] // acts[0].shape[0] if name == "cva" else 1
+            for label, bad_ops, required in planted_faults(name, ops16, ratio):
                 bc = branch_error(name, x16, kernel(*acts16, *coords, bad_ops), ref16)
                 caught = bc > BF16_BRANCH_TOL
                 if required or key[3] == "seeded":
@@ -1896,7 +2000,9 @@ def main() -> int:
         fwd(clip32)
     # per kernel: kernel ms, plain ms, bound ms, seconds of flops, seconds of bytes
     times = {k: [0.0] * 5 for k in EXPECTED_LAUNCHES}
-    parent_ms = dict.fromkeys(("attn_ln", "ln_mlp"), 0.0)  # their routes before this slice
+    # the routes from Python before their one C call; #6's one-call library yardstick
+    parent_ms = dict.fromkeys(("attn_ln", "ln_mlp", "cva", "vit3"), 0.0)
+    library_ms = {"vit3": 0.0}
     with torch.inference_mode():
         for key, (args, count) in cap.instances.items():
             name = key[0]
@@ -1912,10 +2018,14 @@ def main() -> int:
             row[4] += count * t_bytes
             if name in parent_ms:
                 parent_ms[name] += count * cuda_ms(lambda: parent_route(name, args), reps=5)
+            if name in library_ms:
+                library_ms[name] += count * cuda_ms(vit3_library(*args)[0], reps=5)
     for name, (k_ms, p_ms, b_ms, _, _) in times.items():
         before = f" (the route from Python before: {parent_ms[name]:.3f} ms)" if (
             name in parent_ms) else ""
-        log(f"[time] {name}: kernel {k_ms:.3f} ms{before}, plain {p_ms:.3f} ms, bound "
+        lib = (f", torch._transformer_encoder_layer_fwd {library_ms[name]:.3f} ms"
+               if name in library_ms else "")
+        log(f"[time] {name}: kernel {k_ms:.3f} ms{before}, plain {p_ms:.3f} ms{lib}, bound "
             f"{b_ms:.3f} ms per bf16 batch-32 forward ({smi})")
     # the serving forward's trace, #2's and #1's launches by name, the
     # products' yardstick; #10's launches in one step
@@ -1945,8 +2055,9 @@ def main() -> int:
          "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": times[name][2],
          "bound_by": "operations" if times[name][3] >= times[name][4] else "bytes",
-         # no single PyTorch call computes any of these whole contracts
-         "library_ms": None,
+         # one PyTorch call computes #6 (torch._transformer_encoder_layer_fwd);
+         # none computes any of the other whole contracts
+         "library_ms": library_ms.get(name),
          **({"parent_route_ms": parent_ms[name]} if name in parent_ms else {})}
         for name in EXPECTED_LAUNCHES] + train_entries + [{**attn_entry, **attn_step}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -45,18 +45,17 @@
 // holds LN x) and stores y and out, 8 rows at a time through a per-warp
 // staging slice of the key tile (16-byte stores).  A window count that is
 // not a whole number of tiles leaves the last tile's last consumers without
-// a window: they only keep the rings' barriers in step.
+// a window: they only keep the rings' barriers in step.  The per-head steps
+// (bias and rounding into the key and V^T tiles, scores, softmax, P v) are
+// attn_sm90.cuh's, shared with the fused CVA core (cva_sm90.cu).
 #include <algorithm>
 
-#include "sm90.cuh"
+#include "attn_sm90.cuh"
 #include "window_attention_mma.cuh"
 
 namespace mumpy {
 
-constexpr int kArHd = 32;                     // the head width
 constexpr int kArEPitch = 64 + 4;             // f32 epilogue staging pitch
-constexpr int kArKeys = 64 * 128;             // a consumer's key tile: 64 keys x 128 bytes
-constexpr int kArScratch = kArKeys + kArHd * 128;  // and its V^T tile: 32 x 64 keys
 
 // The instance for widths NC (C rounded up to 64): kCons consumer
 // warpgroups, one window each (three where their registers allow, C <= 128:
@@ -92,126 +91,6 @@ struct AttnArgs {
   int R, N, C, H, P, ln_stats_on, key_mask_on, tiles, mask_smem;
   float scale;
 };
-
-// d (64 x 96, f32) += A (64 x 16) B (16 x 96), A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_m64n96k16(float (&d)[48], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
-      "%48, %49, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(1));
-}
-// d (64 x 32, f32) += A (64 x 16) B (16 x 32), A from registers, B K-major
-__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16], const unsigned (&a)[4],
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// P = softmax(S * scale + mb[slot, h]) in place over the 64 keys of rows r0
-// and r0 + 8 of the window (the m64n64 accumulator layout: d[4j..4j+3] hold
-// rows r0, r0, r0 + 8, r0 + 8 at keys 8j + 2t and the next), f32; keys >= N
-// take -1e30 (with key_mask_on = 0, the planted fault, 0), rows >= N give 0.
-// The mask+bias comes from ms, the (H, N, N) staged period-1 one in shared
-// memory, or with ms null from device memory through its strides.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], const AttnArgs& p, const float* ms,
-                                             int slot, int h, int r0, int t) {
-  const float pad = p.key_mask_on ? -1e30f : 0.f;
-  if (ms != nullptr) {  // rows r0, r0 + 8 from key 2t: every element at a fixed offset
-    const float* m0 = ms + (h * p.N + min(r0, p.N - 1)) * p.N + 2 * t;
-    const float* m1 = ms + (h * p.N + min(r0 + 8, p.N - 1)) * p.N + 2 * t;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + (e >> 1) * 8, key = 8 * j + 2 * t + (e & 1);
-        const float m = key >= p.N ? pad : row < p.N ? (e < 2 ? m0 : m1)[8 * j + (e & 1)] : 0.f;
-        s[4 * j + e] = s[4 * j + e] * p.scale + m;
-      }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + (e >> 1) * 8, key = 8 * j + 2 * t + (e & 1);
-        const float m = key >= p.N ? pad : (row < p.N ? p.mb.at(slot, h, row, key) : 0.f);
-        s[4 * j + e] = s[4 * j + e] * p.scale + m;
-      }
-  }
-  float mx0 = -3.0e38f, mx1 = -3.0e38f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {  // the fast exponential: P is rounded to bf16 after
-    s[4 * j] = __expf(s[4 * j] - mx0);
-    s[4 * j + 1] = __expf(s[4 * j + 1] - mx0);
-    s[4 * j + 2] = __expf(s[4 * j + 2] - mx1);
-    s[4 * j + 3] = __expf(s[4 * j + 3] - mx1);
-    sum0 += s[4 * j] + s[4 * j + 1];
-    sum1 += s[4 * j + 2] + s[4 * j + 3];
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
-  const float inv0 = r0 < p.N ? 1.f / sum0 : 0.f, inv1 = r0 + 8 < p.N ? 1.f / sum1 : 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s[4 * j] *= inv0;
-    s[4 * j + 1] *= inv0;
-    s[4 * j + 2] *= inv1;
-    s[4 * j + 3] *= inv1;
-  }
-}
-
-// The bf16 A fragments of a (64 x 16 K) accumulator stretch: K-step kk of an
-// accumulator with 8-column groups d[4j..4j+3], j = 2kk and 2kk + 1.
-template <int N, int M>
-__device__ __forceinline__ void acc_to_frags(unsigned (&a)[N][4], const float (&d)[M]) {
-#pragma unroll
-  for (int kk = 0; kk < N; ++kk) {
-    a[kk][0] = pack_bf16x2(d[8 * kk], d[8 * kk + 1]);
-    a[kk][1] = pack_bf16x2(d[8 * kk + 2], d[8 * kk + 3]);
-    a[kk][2] = pack_bf16x2(d[8 * kk + 4], d[8 * kk + 5]);
-    a[kk][3] = pack_bf16x2(d[8 * kk + 6], d[8 * kk + 7]);
-  }
-}
 
 template <int NC>
 __global__ void __launch_bounds__(AttnSmem<NC>::kThreads, 1)
@@ -353,69 +232,26 @@ __global__ void __launch_bounds__(AttnSmem<NC>::kThreads, 1)
         }
         // every warp is past the previous head's products on the key and V^T tiles
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-        // + bqkv, bf16: q to A fragments, k to the key tile, v to V^T (rows
-        // r0, r0 + 8; head columns 8j' + 2t and the next)
-#pragma unroll
-        for (int j = 0; j < 12; ++j) {
-          const int part = j >> 2, col = 8 * (j & 3) + 2 * t;
-          const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              p.b_qkv + part * p.C + kArHd * h + col));
-          const float v0 = qkv[4 * j] + bb.x, v1 = qkv[4 * j + 1] + bb.y;
-          const float v2 = qkv[4 * j + 2] + bb.x, v3 = qkv[4 * j + 3] + bb.y;
-          if (part == 0) {
-            qa[j >> 1][2 * (j & 1)] = pack_bf16x2(v0, v1);
-            qa[j >> 1][2 * (j & 1) + 1] = pack_bf16x2(v2, v3);
-          } else if (part == 1) {  // key r, columns col, col + 1: 128-byte swizzled rows
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const int r = r0 + 8 * hh;
-              *reinterpret_cast<unsigned*>(keys + r * 128 + (((j & 3) ^ (r & 7)) << 4) +
-                                           4 * t) = pack_bf16x2(hh ? v2 : v0, hh ? v3 : v1);
-            }
-          } else {  // V^T: row col (and col + 1), key r
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int d = col + (e & 1), r = r0 + 8 * (e >> 1);
-              *reinterpret_cast<__nv_bfloat16*>(vt + d * 128 + (((r >> 3) ^ (d & 7)) << 4) +
-                                                (r & 7) * 2) =
-                  __float2bfloat16(e == 0 ? v0 : e == 1 ? v1 : e == 2 ? v2 : v3);
-            }
-          }
-        }
+        // + bqkv, bf16: q to A fragments, k to the key tile, v to V^T
+        const __nv_bfloat16* bq = p.b_qkv + kArHd * h;
+        qkv_to_tiles(qkv, bq, bq + p.C, bq + 2 * p.C, qa, keys, vt, r0, t);
         fence_proxy_async();  // the key and V^T tiles, to the tensor cores
         asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
 
-        // S = q k^T, then P
-        float sc[32];
-#pragma unroll
-        for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-        fence_acc(sc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
-          wgmma_rs_m64n64k16<0>(sc, qa[kk], smem_desc(smem_u32(keys) + kk * 32, 16, 1024));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc(sc);
-        fence_frags(qa);
-        softmax_tile(sc, p, ms, slot, h, r0, t);
-        unsigned pa[4][4];
-        acc_to_frags(pa, sc);  // P rounded to bf16 before P V, as the four-launch route does
-
-        // o = P v
-        float o[16];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) o[i] = 0.f;
-        fence_acc(o);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_m64n32k16(o, pa[kk], smem_desc(smem_u32(vt) + kk * 32, 16, 1024));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc(o);
-        fence_frags(pa);
-        acc_to_frags(oa, o);  // o rounded to bf16, as the four-launch route stores it
+        // S = q k^T + mb, P, o = P v
+        head_attention(qa, keys, vt, oa, [&](float (&sc)[32]) {
+          if (ms != nullptr) {  // rows r0, r0 + 8 from key 2t: every element at a fixed offset
+            const float* m0 = ms + (h * p.N + min(r0, p.N - 1)) * p.N + 2 * t;
+            const float* m1 = ms + (h * p.N + min(r0 + 8, p.N - 1)) * p.N + 2 * t;
+            scale_mask_tile(sc, p.scale, p.N, p.key_mask_on, r0, t, [&](int j, int e, int, int) {
+              return (e < 2 ? m0 : m1)[8 * j + (e & 1)];
+            });
+          } else {
+            scale_mask_tile(sc, p.scale, p.N, p.key_mask_on, r0, t,
+                            [&](int, int, int row, int key) { return p.mb.at(slot, h, row, key); });
+          }
+          softmax_tile(sc, p.N, r0);
+        });
 
         // acc += o Wproj[head rows, :], left running under the next head's qkv
         mbar_wait(full2 + 8 * s, ph);

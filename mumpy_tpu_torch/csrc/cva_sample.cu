@@ -7,6 +7,8 @@
 // ws x ws window contribute zero (torch grid_sample padding_mode='zeros',
 // align_corners=True once the caller has unnormalised the grid).  Row r of the
 // ratio-tiled partner pairs with query window r % B1, as jnp.tile orders it.
+// sample_on = 0 takes the one tap at the floor of each coordinate with
+// weight 1 (the bilinear weights ignored), a planted fault of the checks.
 //
 // Replaces the sampling stage of mumpy_tpu/ops/pallas/cva.py:_cva_kernel,
 // which builds (N, N) weight matrices from one-hot expanders so the gather
@@ -21,7 +23,8 @@ namespace mumpy {
 template <typename T>
 __global__ void cva_sample_kernel(const T* __restrict__ x2, const float* __restrict__ gy,
                                   const float* __restrict__ gx, T* __restrict__ s,
-                                  int R, int B1, int N, int C, int groups, int ws) {
+                                  int R, int B1, int N, int C, int groups, int ws,
+                                  int sample_on) {
   const size_t total = (size_t)R * N * C;
   const int gc = C / groups;
   for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
@@ -34,7 +37,7 @@ __global__ void cva_sample_kernel(const T* __restrict__ x2, const float* __restr
     const size_t ci = ((size_t)g * B1 + (r % B1)) * N + i;
     const float cy = gy[ci], cx = gx[ci];
     const float y0 = floorf(cy), x0 = floorf(cx);
-    const float fy = cy - y0, fx = cx - x0;
+    const float fy = sample_on ? cy - y0 : 0.f, fx = sample_on ? cx - x0 : 0.f;
     const int iy = (int)y0, ix = (int)x0;
     const T* base = x2 + (size_t)r * N * C + c;
     float acc = 0.f;
@@ -58,22 +61,23 @@ __global__ void cva_sample_kernel(const T* __restrict__ x2, const float* __restr
 }  // namespace mumpy
 
 extern "C" int mumpy_cva_sample(const void* x2, const void* gy, const void* gx, void* s,
-                                int R, int B1, int N, int C, int groups, int ws,
+                                int R, int B1, int N, int C, int groups, int ws, int sample_on,
                                 int dtype, void* stream) {
   using namespace mumpy;
   const size_t total = (size_t)R * N * C;
   const int threads = 256;
-  const int blocks = (int)((total + threads - 1) / threads < 65536 ? (total + threads - 1) / threads : 65536);
+  const size_t want = (total + threads - 1) / threads;
+  const int blocks = (int)(want < 65536 ? want : 65536);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* y = static_cast<const float*>(gy);
   const float* x = static_cast<const float*>(gx);
   if (dtype == kBF16)
     cva_sample_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x2), y, x, static_cast<__nv_bfloat16*>(s), R, B1,
-        N, C, groups, ws);
+        N, C, groups, ws, sample_on);
   else
     cva_sample_kernel<float><<<blocks, threads, 0, st>>>(
         static_cast<const float*>(x2), y, x, static_cast<float*>(s), R, B1, N, C, groups,
-        ws);
+        ws, sample_on);
   return (int)cudaGetLastError();
 }

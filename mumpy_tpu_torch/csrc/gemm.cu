@@ -25,20 +25,12 @@
 //
 // Replaces the matrix products inside the Pallas kernels
 // mumpy_tpu/ops/pallas/{ln_mlp,attn_ln,swin_block,swin_pair,cva,vit3}.py in
-// f32, and in bf16 the CVA ratio fold alone: every other bf16 product runs on
-// the persistent wgmma GEMM of gemm_sm90.cu (cuda_lib.gemm routes it there),
-// whose loads gather single rows and cannot sum a_sum of them.  A block owns
-// one output tile and streams K through shared memory; the LayerNorm
-// statistics of the tile's rows are computed in-block before the K loop.
-// f32 runs a 64x64 SIMT loop with fmaf (no TF32).  bf16 runs the fold alone
-// (y = sum of rows, times W, plus bias) on the tensor cores: 128x128 tiles,
-// wmma 16x16x16 with f32 accumulation, 16-byte loads, the next k-tile
-// prefetched into registers; it takes K and N multiples of 8 and 16-byte
-// aligned operands and refuses other calls.  The fold's product (the CVA
-// projection, B1 rows) is small beside the rest of the forward, so its loop
-// stays as it is.
-#include <mma.h>
-
+// f32; every bf16 product runs on the persistent wgmma GEMM of gemm_sm90.cu
+// (cuda_lib.gemm routes it there), and the bf16 CVA folds its ratio in the
+// attention core or in its fused kernel (cva_sm90.cu).  A block owns one
+// output tile and streams K through shared memory; the LayerNorm statistics
+// of the tile's rows are computed in-block before the K loop.  A 64x64 SIMT
+// loop with fmaf (no TF32); it takes f32 only and refuses bf16.
 #include "common.cuh"
 
 namespace mumpy {
@@ -170,118 +162,6 @@ __global__ void __launch_bounds__(kSimtThreads) gemm_f32_simt_kernel(GemmArgs p)
     for (int j = 0; j < 4; ++j) epilogue(p, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
 }
 
-// ---- bf16 tensor-core main loop: the CVA ratio fold ----
-// 128x128 output tile, 8 warps of 64x32 (4x2 wmma 16x16x16 fragments), K in
-// steps of 32.  Every global access moves 8 bf16 (16 bytes); the next k-tile
-// is fetched into registers while the MMAs run on the current one.  Each warp
-// runs its own epilogue (bias, y) through a 16x16 f32 staging tile.
-constexpr int kTcBM = 128, kTcBN = 128, kTcBK = 32, kTcThreads = 256;
-constexpr int kLdA = kTcBK + 8, kLdB = kTcBN + 8, kLdS = 16 + 4;  // padded pitches
-
-// 8 consecutive A elements (m, k..k+7): the sum of the a_sum rows folded
-// into row m
-__device__ __forceinline__ uint4 a_fold(const GemmArgs& p, int m, int k) {
-  if (m >= p.M || k >= p.K) return make_uint4(0, 0, 0, 0);
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  const size_t base = (size_t)(m / p.a_seg) * p.a_sum * p.a_seg + m % p.a_seg;
-  float acc[8] = {}, f[8];
-  for (int t = 0; t < p.a_sum; ++t) {
-    unpack8(ldg8(x + (base + (size_t)t * p.a_seg) * p.K + k), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] += f[i];
-  }
-  return pack8(acc);
-}
-
-__device__ __forceinline__ uint4 b_vec(const GemmArgs& p, int k, int n) {
-  if (k >= p.K || n >= p.N) return make_uint4(0, 0, 0, 0);
-  return ldg8(static_cast<const __nv_bfloat16*>(p.w) + (size_t)k * p.N + n);
-}
-
-__global__ void __launch_bounds__(kTcThreads, 2) gemm_bf16_fold_kernel(GemmArgs p) {
-  using namespace nvcuda;
-  // wmma wants 32-byte aligned fragment origins: the pitches (80, 272 and 80
-  // bytes) keep every 16-row / 16-column origin on one
-  __shared__ __align__(128) __nv_bfloat16 As[kTcBM * kLdA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[kTcBK * kLdB];
-  __shared__ __align__(128) float stage[kTcThreads / 32][16 * kLdS];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;  // warp's 64x32 sub-tile
-  const int m0 = blockIdx.y * kTcBM, n0 = blockIdx.x * kTcBN;
-  // this thread's vectors: A rows ra / ra + 64 at column ka; B rows kb / kb + 16 at nb
-  const int ra = tid >> 2, ka = (tid & 3) * 8;
-  const int kb = tid >> 4, nb = (tid & 15) * 8;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  uint4 a0 = a_fold(p, m0 + ra, ka);
-  uint4 a1 = a_fold(p, m0 + ra + 64, ka);
-  uint4 b0 = b_vec(p, kb, n0 + nb);
-  uint4 b1 = b_vec(p, kb + 16, n0 + nb);
-  for (int k0 = 0; k0 < p.K; k0 += kTcBK) {
-    *reinterpret_cast<uint4*>(As + ra * kLdA + ka) = a0;
-    *reinterpret_cast<uint4*>(As + (ra + 64) * kLdA + ka) = a1;
-    *reinterpret_cast<uint4*>(Bs + kb * kLdB + nb) = b0;
-    *reinterpret_cast<uint4*>(Bs + (kb + 16) * kLdB + nb) = b1;
-    __syncthreads();
-    const int k1 = k0 + kTcBK;
-    if (k1 < p.K) {  // next k-tile in flight during the MMAs
-      a0 = a_fold(p, m0 + ra, k1 + ka);
-      a1 = a_fold(p, m0 + ra + 64, k1 + ka);
-      b0 = b_vec(p, k1 + kb, n0 + nb);
-      b1 = b_vec(p, k1 + kb + 16, n0 + nb);
-    }
-#pragma unroll
-    for (int ks = 0; ks < kTcBK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * kLdA + ks, kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + ks * kLdB + wn + 16 * j, kLdB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // per-warp epilogue: stage one 16x16 fragment, each lane finishes 8 columns
-  float* st = stage[warp];
-  const int sr = lane >> 1, sc = (lane & 1) * 8;
-  const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(p.bias);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], kLdS, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm + 16 * i + sr, n = n0 + wn + 16 * j + sc;
-      if (m < p.M && n < p.N) {
-        float f[8], t[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = st[sr * kLdS + sc + e];
-        if (bias != nullptr) {
-          unpack8(ldg8(bias + n), t);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] += t[e];
-        }
-        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.y) + (size_t)m * p.N + n) =
-            pack8(f);
-      }
-      __syncwarp();
-    }
-  }
-}
-
 }  // namespace mumpy
 
 extern "C" int mumpy_gemm(const void* x, const void* w, const void* bias,
@@ -297,21 +177,11 @@ extern "C" int mumpy_gemm(const void* x, const void* w, const void* bias,
   if ((row_scale != nullptr && scale_div <= 0) || (act == kActGeluGrad && aux == nullptr) ||
       act < kActNone || act > kActGeluGrad || (aux_out != nullptr && act != kActGeluGrad))
     return (int)cudaErrorInvalidValue;
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;  // bf16: gemm_sm90.cu
   GemmArgs p{x, w, bias, ln_g, ln_b, res, a_map, c_map, y, out, row_scale, aux, aux_out,
              M, N, K, a_sum, a_seg, act, map_len, scale_div};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) {  // the fold alone: y = (sum of rows) W + bias
-    const bool fold = a_sum > 1 && ln_g == nullptr && res == nullptr && out == nullptr &&
-                      y != nullptr && row_scale == nullptr && act == kActNone &&
-                      K % 8 == 0 && N % 8 == 0 && aligned16(x) && aligned16(w) &&
-                      aligned16(bias) && aligned16(y);
-    if (!fold) return (int)cudaErrorInvalidValue;
-    dim3 grid((N + kTcBN - 1) / kTcBN, (M + kTcBM - 1) / kTcBM);
-    gemm_bf16_fold_kernel<<<grid, kTcThreads, 0, s>>>(p);
-  } else {
-    dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    gemm_f32_simt_kernel<<<grid, kSimtThreads, 0, s>>>(p);
-  }
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  gemm_f32_simt_kernel<<<grid, kSimtThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-// The C entry points of the kernel sources that swin_block_train.cu and
-// swin_pair.cu launch in sequence (each defined in the source named beside
-// it).  Every one launches on `stream` and returns cudaGetLastError().  Then
+// The C entry points of the kernel sources that swin_block_train.cu,
+// swin_pair.cu, vit3_sm90.cu and cva_sm90.cu launch in sequence (each defined
+// in the source named beside it).  Every one launches on `stream` and returns cudaGetLastError().  Then
 // what both sequence files use: the weight order of a Swin block, the scratch
 // arena and the error check.
 #pragma once
@@ -35,6 +35,17 @@ int mumpy_mlp_rows(const void* x, const void* ln_g, const void* ln_b, const void
                    const void* b1, const void* w2, const void* b2, void* y, int M, int C,
                    int hidden, int ln_stats_on, int gelu_on, void* stream);
 
+// swin_pair.cu: #4 in one call (its scratch, then the launches)
+long long mumpy_ln_mlp_scratch(int M, int C, int hidden);
+int mumpy_ln_mlp_fwd(const void* x, const void* const* w, void* y, void* scratch, int M, int C,
+                     int hidden, int ln_stats_on, int gelu_on, void* stream);
+
+// vit3_attention.cu, cva_sample.cu
+int mumpy_vit3_attention(const void* qkv, void* o, int R, int H, int hd, float scale, int dtype,
+                         void* stream);
+int mumpy_cva_sample(const void* x2, const void* gy, const void* gx, void* s, int R, int B1,
+                     int N, int C, int groups, int ws, int sample_on, int dtype, void* stream);
+
 // attn_sm90.cu
 int mumpy_attn_rows(const void* x, const void* ln_g, const void* ln_b, const void* w_qkv,
                     const void* b_qkv, const void* w_proj, const void* b_proj, const void* mb,
@@ -47,6 +58,10 @@ int mumpy_window_attention(const void* q, const void* k, const void* v, void* o,
                            int R, int N, int H, int hd, int q_mod, int ldq, int ldk, int ldv,
                            int ldo, int P, int mb_dtype, int mb_s0, int mb_s1, int mb_s2,
                            int mb_s3, float scale, int dtype, void* stream);
+int mumpy_window_attention_fold(const void* q, const void* k, const void* v, void* o, int R,
+                                int N, int H, int hd, int q_mod, int ldq, int ldk, int ldv,
+                                int ldo, int fold, int fold_on, float scale, int dtype,
+                                void* stream);
 int mumpy_window_attention_bwd(const void* qkv, const void* dout, const void* mb, void* dqkv,
                                void* o, float* dmb, int R, int N, int H, int hd, int P,
                                int mb_dtype, int mb_s0, int mb_s1, int mb_s2, int mb_s3, int chunks,

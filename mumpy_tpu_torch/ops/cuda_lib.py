@@ -44,7 +44,14 @@ _SIGNATURES = {
     "mumpy_col_sums": [_P] * 7 + [_I] * 4 + [_P],
     "mumpy_reduce_splits": [_P, _I, _P, _P, _P],
     "mumpy_window_attention": [_P] * 5 + [_I] * 15 + [_F, _I, _P],
-    "mumpy_cva_sample": [_P] * 4 + [_I] * 7 + [_P],
+    "mumpy_cva_sample": [_P] * 4 + [_I] * 8 + [_P],
+    "mumpy_window_attention_fold": [_P] * 4 + [_I] * 11 + [_F, _I, _P],
+    "mumpy_vit3_qkv_attn": [_P] * 4 + [_I] * 3 + [_P],
+    "mumpy_vit3_scratch": [_I] * 4,
+    "mumpy_vit3_fwd": [_P] * 4 + [_I] * 4 + [_P],
+    "mumpy_cva_rows": [_P] * 10 + [_I] * 10 + [_P],
+    "mumpy_cva_scratch": [_I] * 7,
+    "mumpy_cva_fwd": [_P] * 7 + [_I] * 10 + [_P],
     "mumpy_vit3_attention": [_P] * 2 + [_I] * 3 + [_F, _I, _P],
     "mumpy_window_attention_bwd": [_P] * 6 + [_I] * 11 + [_F, _I, _I, _P],
     "mumpy_ln_rows": [_P] * 6 + [_I] * 4 + [_P],
@@ -70,7 +77,8 @@ _SIGNATURES = {
 }
 _LONG_RESULTS = ("mumpy_swin_block_train_scratch", "mumpy_swin_blocks_scratch",
                  "mumpy_ln_mlp_train_scratch", "mumpy_attn_ln_train_scratch",
-                 "mumpy_attn_ln_scratch", "mumpy_ln_mlp_scratch")
+                 "mumpy_attn_ln_scratch", "mumpy_ln_mlp_scratch", "mumpy_vit3_scratch",
+                 "mumpy_cva_scratch")
 
 
 def _nvcc() -> str:
@@ -199,8 +207,8 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
          gelu=False, a_sum=1, a_seg=1, a_map=None, c_map=None, row_scale=None,
          scale_div=1, gelu_grad_of=None, gelu_out=None, ln_stats_on=True):
     """The serving kernels' GEMM: bf16 on the persistent wgmma GEMM
-    (:func:`gemm_sm90`), except the row fold (bias and y only); f32, and the
-    bf16 row fold, on the tiled GEMM (csrc/gemm.cu).  ``x`` is (M*a_sum, K)
+    (:func:`gemm_sm90`), f32 on the tiled GEMM (csrc/gemm.cu), whose
+    prologue alone takes the row fold (f32 only).  ``x`` is (M*a_sum, K)
     (the fold reads ``a_sum`` rows per output row), ``w`` (K, N).  Returns ``y``
     and/or ``out = res + y`` as requested.  ``a_map`` / ``c_map`` are int32
     row maps of a period L dividing M: A row m (and its LayerNorm) is read
@@ -211,7 +219,10 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
     the GELU backward, and then also writes GELU(gelu_grad_of) into
     ``gelu_out`` when it is given.  ``ln_stats_on=False`` (bf16) plants the
     checks' fault: the LayerNorm with mean 0 and rstd 1."""
-    if x.dtype == torch.bfloat16 and a_sum == 1:
+    if x.dtype == torch.bfloat16:
+        if a_sum > 1:
+            raise ValueError("the row fold is f32 only: bf16 folds in the attention core "
+                             "(window_attention_fold)")
         return gemm_sm90(x, w, bias, res=res, want_y=want_y, want_out=want_out, gelu=gelu,
                          row_scale=row_scale, scale_div=scale_div, gelu_grad_of=gelu_grad_of,
                          gelu_out=gelu_out, ln=ln, a_map=a_map, c_map=c_map,
@@ -245,13 +256,6 @@ def gemm(x, w, bias=None, ln=None, res=None, want_y=True, want_out=False,
         require(gelu_out, "gelu output", x, shape=(m, n))
     if m > _GRID_Y_MAX_ROWS:
         raise ValueError(f"gemm: {m} rows exceed the grid limit {_GRID_Y_MAX_ROWS}")
-    if x.dtype == torch.bfloat16:  # the fold's tensor-core loop (csrc/gemm.cu)
-        if ln is not None or want_out or act != ACT_NONE or row_scale is not None:
-            raise ValueError("the bf16 row fold takes no LayerNorm, residual, activation "
-                             "or row scale")
-        if k % 8 or n % 8 or any(t is not None and t.data_ptr() % 16 for t in (x, w, bias)):
-            raise ValueError(f"bf16 gemm takes K and N multiples of 8 and 16-byte aligned "
-                             f"operands; got K={k} N={n}")
     y = torch.empty((m, n), device=x.device, dtype=x.dtype) if want_y else None
     out = None
     if want_out:
@@ -402,15 +406,39 @@ def packed_window_attention(qkv, mb, *, r, n, heads):
                             mb=mb, scale=hd**-0.5)
 
 
-def cva_sample(x2, gy, gx, *, b1, n, groups, ws):
-    """Launch the per-group bilinear sampler (csrc/cva_sample.cu)."""
+def window_attention_fold(q, kv, *, r, n, heads, q_mod, fold, fold_on=True):
+    """The window-attention core of the CVA (csrc/window_attention.cu,
+    ``mumpy_window_attention_fold``): no additive term, window w's queries
+    from ``q`` window ``w % q_mod`` (rows of C), keys and values from the
+    packed k|v rows ``kv`` (r*n, 2C), and each run of ``fold`` consecutive
+    windows summed.  Returns o (r / fold * n, C); ``fold_on=False`` keeps
+    each run's first window, the checks' planted fault."""
+    c = kv.shape[-1] // 2
+    hd = c // heads
+    require(q, "q", kv, shape=(q_mod * n, c))
+    require(kv, "k|v", kv, shape=(r * n, 2 * c))
+    if n > 64 or hd > 32 or r % fold:
+        raise ValueError(f"the folding core takes n <= 64, hd <= 32 and whole runs of "
+                         f"{fold} windows; got n={n} hd={hd} r={r}")
+    o = torch.empty((r // fold * n, c), device=kv.device, dtype=kv.dtype)
+    check(lib().mumpy_window_attention_fold(
+        ptr(q), ptr(kv), kv.data_ptr() + c * kv.element_size(), ptr(o), r, n, heads, hd, q_mod,
+        c, 2 * c, 2 * c, c, fold, int(fold_on), hd**-0.5, dtype_code(kv), stream_of(kv)),
+        "window_attention_fold")
+    return o
+
+
+def cva_sample(x2, gy, gx, *, b1, n, groups, ws, sample_on=True):
+    """Launch the per-group bilinear sampler (csrc/cva_sample.cu);
+    ``sample_on=False`` plants the checks' fault (one tap at the floor of
+    each coordinate, weight 1)."""
     r, c = x2.shape[0] // n, x2.shape[-1]
     require(x2, "x2", x2)
     require(gy, "gy", x2, shape=(groups, b1, n), dtype=torch.float32)
     require(gx, "gx", x2, shape=(groups, b1, n), dtype=torch.float32)
     s = torch.empty_like(x2)
     check(lib().mumpy_cva_sample(ptr(x2), ptr(gy), ptr(gx), ptr(s), r, b1, n, c, groups,
-                                 ws, dtype_code(x2), stream_of(x2)), "cva_sample")
+                                 ws, int(sample_on), dtype_code(x2), stream_of(x2)), "cva_sample")
     return s
 
 
@@ -952,3 +980,127 @@ def ln_mlp_train_bwd(x, dy, keep, weights, div=1, gelu_grad=True):
         dx.data_ptr(), ptrs(*(g.data_ptr() for g in grads)), scratch.data_ptr(), rows, c, hidden,
         div, int(gelu_grad), stream_of(x)), "ln_mlp_train_bwd")
     return (dx, *grads)
+
+
+# ---- #6 and #5 in one call each (csrc/vit3_sm90.cu, csrc/cva_sm90.cu) ----
+
+_VIT3_WEIGHTS = (("attn", "ln_g"), ("attn", "ln_b"), ("attn", "w_qkv_rows"), ("attn", "b_qkv"),
+                 ("attn", "w_proj"), ("attn", "b_proj"), ("mlp", "ln_g"), ("mlp", "ln_b"),
+                 ("mlp", "w1"), ("mlp", "b1"), ("mlp", "w2"), ("mlp", "b2"))
+
+
+def fused_vit3(c, heads):
+    """Whether #6's bf16 qkv product and n = 3 attention run fused
+    (csrc/vit3_sm90.cu): a head width of 64."""
+    return heads > 0 and c == 64 * heads
+
+
+def vit3_qkv_attn(h, w_qkv, b_qkv, heads):
+    """bf16: #6's fused qkv product and n = 3 attention
+    (``mumpy_vit3_qkv_attn``) on the normalised time-major rows ``h`` (3, R,
+    C), ``w_qkv`` (3C, C) as torch stores it: o (3, R, C), qkv never in
+    device memory."""
+    three, r, c = h.shape
+    require(h, "h", h, dtype=torch.bfloat16)
+    require(w_qkv, "w_qkv", h, shape=(3 * c, c))
+    require(b_qkv, "b_qkv", h, shape=(3 * c,))
+    if three != 3 or not fused_vit3(c, heads):
+        raise ValueError(f"the fused qkv + attention takes (3, R, C) rows and a head width of "
+                         f"64; got {tuple(h.shape)} and {heads} heads")
+    o = torch.empty_like(h)
+    check(lib().mumpy_vit3_qkv_attn(ptr(h), ptr(w_qkv), ptr(b_qkv), ptr(o), r, c, heads,
+                                    stream_of(h)), "vit3_qkv_attn")
+    return o
+
+
+def vit3_fwd(x, ops):
+    """bf16: #6 in one call (``mumpy_vit3_fwd``) on the time-major ``x`` (3,
+    R, C) with its ``vit3`` operands: ``ln_rows``, the fused qkv + attention
+    where :func:`fused_vit3` takes the width (else the qkv product and
+    csrc/vit3_attention.cu), the projection with the residual, and ``ln_mlp``'s
+    call.  Returns the layer's output (3, R, C)."""
+    three, r, c = x.shape
+    require(x, "x", x, dtype=torch.bfloat16)
+    heads, hidden = ops["attn"]["heads"], ops["mlp"]["w1"].shape[1]
+    shapes = ((c,), (c,), (3 * c, c), (3 * c,), (c, c), (c,), (c,), (c,), (c, hidden),
+              (hidden,), (hidden, c), (c,))
+    weights = [ops[a][k] for a, k in _VIT3_WEIGHTS]
+    for (_, k), w, shape in zip(_VIT3_WEIGHTS, weights, shapes):
+        require(w, k, x, shape=shape)
+    if three != 3 or c % heads or c // heads > 128 or c % 8 or hidden % 8:
+        raise ValueError(f"vit3 takes (3, R, C) rows, a head width of at most 128 and widths "
+                         f"that are multiples of 8; got {tuple(x.shape)}, {heads} heads, "
+                         f"hidden {hidden}")
+    scratch = torch.empty(lib().mumpy_vit3_scratch(r, c, hidden, heads), device=x.device,
+                          dtype=torch.uint8)
+    out = torch.empty_like(x)
+    check(lib().mumpy_vit3_fwd(ptr(x), (ctypes.c_void_p * 12)(*(ptr(w) for w in weights)),
+                               ptr(out), ptr(scratch), r, c, hidden, heads, stream_of(x)),
+          "vit3_fwd")
+    return out
+
+
+_CVA_WEIGHTS = ("w_q_rows", "b_q", "w_kv_rows", "b_kv", "w_proj")
+
+
+def fused_cva(n, c, heads, groups, ws):
+    """Whether #5's bf16 core runs on the fused kernel (csrc/cva_sm90.cu): a
+    head width of 32, C <= 256, windows of ws x ws <= 64 tokens and groups of
+    whole 8-channel chunks."""
+    return (heads > 0 and c == 32 * heads and c <= 256 and n <= 64 and n == ws * ws
+            and groups > 0 and c % groups == 0 and (c // groups) % 8 == 0)
+
+
+def _cva_operands(x1, x2, gy, gx, ops):
+    """Check #5's bf16 operands; return (B1, R, N, C)."""
+    b1, n, c = x1.shape
+    r = x2.shape[0]
+    require(x1, "x1", x1, dtype=torch.bfloat16)
+    require(x2, "x2", x1, shape=(r, n, c))
+    groups, heads = ops["groups"], ops["heads"]
+    for t, name in ((gy, "gy"), (gx, "gx")):
+        require(t, name, x1, shape=(groups, b1, n), dtype=torch.float32)
+    for k, shape in zip(_CVA_WEIGHTS, ((c, c), (c,), (2 * c, c), (2 * c,), (c, c))):
+        require(ops[k], k, x1, shape=shape)
+    if r % b1 or n > 64 or c % heads or c // heads > 32 or c % 8 or c % groups:
+        raise ValueError(f"cva takes partner windows in whole multiples of the query windows, "
+                         f"n <= 64, a head width of at most 32 and C a multiple of 8 and of the "
+                         f"groups; got B1={b1} R={r} n={n} C={c} heads={heads} groups={groups}")
+    return b1, r, n, c
+
+
+def cva_rows(x1, x2, gy, gx, ops, sample_on=True, fold_on=True, key_mask_on=True):
+    """bf16: #5's fused core (``mumpy_cva_rows``) on query windows ``x1``
+    (B1, N, C), partner windows ``x2`` (R, N, C) and the f32 coordinates
+    ``gy`` / ``gx`` (groups, B1, N) with its ``cva`` operands: the
+    ratio-folded output (B1, N, C) without the proj_out bias, s, k|v and o
+    never in device memory.  ``sample_on``, ``fold_on`` and ``key_mask_on``
+    False plant the checks' faults."""
+    b1, r, n, c = _cva_operands(x1, x2, gy, gx, ops)
+    if not fused_cva(n, c, ops["heads"], ops["groups"], ops["ws"]):
+        raise ValueError(f"the fused CVA core takes a head width of 32, C <= 256 and windows of "
+                         f"ws x ws <= 64 tokens; got n={n} C={c} heads={ops['heads']}")
+    out = torch.empty_like(x1)
+    check(lib().mumpy_cva_rows(ptr(x1), ptr(x2), ptr(gy), ptr(gx),
+                               *(ptr(ops[k]) for k in _CVA_WEIGHTS), ptr(out), b1, r, n, c,
+                               ops["heads"], ops["groups"], ops["ws"], int(sample_on),
+                               int(fold_on), int(key_mask_on), stream_of(x1)), "cva_rows")
+    return out
+
+
+def cva_fwd(x1, x2, gy, gx, ops, sample_on=True, fold_on=True, key_mask_on=True):
+    """bf16: #5 in one call (``mumpy_cva_fwd``): one launch of the fused core
+    where :func:`fused_cva` takes the widths, else five (q, the sampler, k|v,
+    the folding attention core, the projection).  Arguments as
+    :func:`cva_rows`'s (``key_mask_on`` acts on the fused route only)."""
+    b1, r, n, c = _cva_operands(x1, x2, gy, gx, ops)
+    heads, groups, ws = ops["heads"], ops["groups"], ops["ws"]
+    scratch = torch.empty(lib().mumpy_cva_scratch(b1, r, n, c, heads, groups, ws),
+                          device=x1.device, dtype=torch.uint8)
+    out = torch.empty_like(x1)
+    check(lib().mumpy_cva_fwd(ptr(x1), ptr(x2), ptr(gy), ptr(gx),
+                              (ctypes.c_void_p * 5)(*(ptr(ops[k]) for k in _CVA_WEIGHTS)),
+                              ptr(out), ptr(scratch), b1, r, n, c, heads, groups, ws,
+                              int(sample_on), int(fold_on), int(key_mask_on), stream_of(x1)),
+          "cva_fwd")
+    return out

@@ -12,15 +12,23 @@ Replaces ``mumpy_tpu/ops/pallas/cva.py:fused_cva_prepared`` (Pallas
 (``deformable.py:111-112``); with ratio 3 the two groupings differ, as in the
 reference.  The caller adds the proj_out bias after the fold.
 
-On the card it is five launches: the q GEMM, the sampler
-(``csrc/cva_sample.cu``), one GEMM for k and v together, the attention core
-without an additive term (keys past N masked in-kernel), and the projection
-GEMM whose prologue sums the ratio rows, so the projection runs on B1 rows,
-not R.  In bf16 the q and k/v GEMMs run on the persistent wgmma GEMM of
-``csrc/gemm_sm90.cu`` and the folded projection on ``csrc/gemm.cu``'s wmma
-loop (the one bf16 caller it keeps); f32 runs all three on ``csrc/gemm.cu``'s
-SIMT loop.  The sampler and the attention core are bound by device-memory
-bytes.
+In bf16 it is one call of ``csrc/cva_sm90.cu`` (``cuda_lib.cva_fwd``): at
+head width 32 and C <= 256 (the flagship's stages 0 and 1) one launch of the
+fused core, which samples each partner window in shared memory, runs q, k|v,
+the attention and the projection per head on wgmma and folds the ratio in
+its registers, so s, k|v and o never reach device memory; wider, five
+launches: the q and k|v products on the persistent wgmma GEMM of
+``csrc/gemm_sm90.cu`` (weights read as torch stores them, ``w_q_rows`` and
+``w_kv_rows``), the sampler (``csrc/cva_sample.cu``), the attention core
+without an additive term (keys past N masked in-kernel) that also sums each
+output window's ratio partner windows (``mumpy_window_attention_fold``), and
+the projection on the persistent GEMM.  f32 composes five launches here
+(:func:`cva_sequence`) on ``csrc/gemm.cu``'s SIMT loop, whose projection
+prologue sums the ratio rows.  The fused core is bound by the tensor cores'
+rate; the five launches by the sampler's and the core's bytes.  The
+operands' ``sample_on``, ``fold_on`` and ``key_mask_on`` (bf16, default
+True) plant the checks' faults: the bilinear weights ignored, only each
+output window's first partner window, the pad keys unmasked (fused route).
 """
 
 from __future__ import annotations
@@ -36,15 +44,22 @@ __all__ = ["cva", "cva_plain", "cva_operands", "sample_plain"]
 def cva_operands(w_q, b_q, w_k, b_k, w_v, b_v, w_proj, heads, groups, ws, live=False):
     """Kernel operands from the 1x1-conv weights ((C, C) after squeezing the
     kernel dims; torch (out, in) layout).  Weights are stored (in, out), with
-    k and v side by side.  ``live=True`` keeps them in the autograd graph (the
-    plain version's training operands); otherwise they are detached."""
+    k and v side by side; without ``live`` also as torch stores them, q's
+    (C, C) and k's and v's stacked (2C, C) (``w_q_rows``, ``w_kv_rows``: a
+    head's columns are rows there), which the bf16 call reads.  ``live=True``
+    keeps them in the autograd graph (the plain version's training
+    operands); otherwise they are detached."""
     d = (lambda w: w) if live else (lambda w: w.detach())
-    t = lambda w: d(w).reshape(w.shape[0], -1).t()
-    return {"w_q": t(w_q).contiguous(), "b_q": d(b_q).contiguous(),
-            "w_kv": torch.cat([t(w_k), t(w_v)], dim=1).contiguous(),
-            "b_kv": torch.cat([d(b_k), d(b_v)]).contiguous(),
-            "w_proj": t(w_proj).contiguous(), "heads": heads, "groups": groups,
-            "ws": ws}
+    rows = lambda w: d(w).reshape(w.shape[0], -1)
+    t = lambda w: rows(w).t()
+    ops = {"w_q": t(w_q).contiguous(), "b_q": d(b_q).contiguous(),
+           "w_kv": torch.cat([t(w_k), t(w_v)], dim=1).contiguous(),
+           "b_kv": torch.cat([d(b_k), d(b_v)]).contiguous(),
+           "w_proj": t(w_proj).contiguous(), "heads": heads, "groups": groups, "ws": ws}
+    if not live:  # the weights as the bf16 call reads them
+        ops.update(w_q_rows=rows(w_q).contiguous(),
+                   w_kv_rows=torch.cat([rows(w_k), rows(w_v)]).contiguous())
+    return ops
 
 
 def sample_plain(x2, gy, gx, groups, ws):
@@ -86,22 +101,43 @@ def cva(x1, x2, gy, gx, ops):
     return launch_cva(x1, x2, gy, gx, ops)
 
 
+FAULTS = ("sample_on", "fold_on", "key_mask_on")  # the bf16 call's planted-fault switches
+
+
 def launch_cva(x1, x2, gy, gx, ops):
-    """The kernel's launches: q, sampling, k|v, attention, folded proj."""
+    """The kernel's launches: bf16 one call of ``csrc/cva_sm90.cu``, f32
+    :func:`cva_sequence`."""
+    if x2.shape[0] % x1.shape[0]:
+        raise ValueError(f"partner windows {x2.shape[0]} are not a multiple of query windows "
+                         f"{x1.shape[0]}")
+    if x1.dtype == torch.bfloat16:
+        return cuda_lib.cva_fwd(x1, x2, gy, gx, ops, **{k: ops.get(k, True) for k in FAULTS})
+    return cva_sequence(x1, x2, gy, gx, ops)
+
+
+def cva_sequence(x1, x2, gy, gx, ops):
+    """Five launches from Python: q, sampling, k|v, attention, projection.
+    f32 folds the ratio in the projection's prologue (``csrc/gemm.cu``'s
+    SIMT loop); bf16 in the attention core (``mumpy_window_attention_fold``),
+    the products on the persistent GEMM (the route the port took before the
+    one C call, with the fold moved off ``gemm.cu``)."""
     b1, n, c = x1.shape
     r = x2.shape[0]
-    if r % b1:
-        raise ValueError(f"partner windows {r} are not a multiple of query windows {b1}")
     heads = ops["heads"]
     hd = c // heads
     q, _ = cuda_lib.gemm(x1.reshape(b1 * n, c), ops["w_q"], ops["b_q"])
-    s = cuda_lib.cva_sample(x2.reshape(r * n, c), gy, gx, b1=b1, n=n,
-                            groups=ops["groups"], ws=ops["ws"])
+    s = cuda_lib.cva_sample(x2.reshape(r * n, c), gy, gx, b1=b1, n=n, groups=ops["groups"],
+                            ws=ops["ws"], sample_on=ops.get("sample_on", True))
     kv, _ = cuda_lib.gemm(s, ops["w_kv"], ops["b_kv"])
-    o = cuda_lib.window_attention(
-        q, kv, kv, r=r, n=n, heads=heads, hd=hd, q_mod=b1, ldq=c, ldk=2 * c,
-        ldv=2 * c, k_off=0, v_off=c, mb=None, scale=hd**-0.5)
-    out, _ = cuda_lib.gemm(o, ops["w_proj"], a_sum=r // b1, a_seg=n)
+    if x1.dtype == torch.bfloat16:
+        o = cuda_lib.window_attention_fold(q, kv, r=r, n=n, heads=heads, q_mod=b1,
+                                           fold=r // b1, fold_on=ops.get("fold_on", True))
+        out, _ = cuda_lib.gemm(o, ops["w_proj"])
+    else:
+        o = cuda_lib.window_attention(
+            q, kv, kv, r=r, n=n, heads=heads, hd=hd, q_mod=b1, ldq=c, ldk=2 * c,
+            ldv=2 * c, k_off=0, v_off=c, mb=None, scale=hd**-0.5)
+        out, _ = cuda_lib.gemm(o, ops["w_proj"], a_sum=r // b1, a_seg=n)
     return out.reshape(b1, n, c)
 
 

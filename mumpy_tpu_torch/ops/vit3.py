@@ -9,17 +9,20 @@ tokens.
 ``x`` is (3, R, C): three slabs of R = B*49 rows, one per time slice.
 
 Replaces ``mumpy_tpu/ops/pallas/vit3.py:fused_vit3_prepared`` (Pallas
-``_vit3_kernel``), which holds the layer's weights in VMEM and unrolls the
-3x3 attention with head reducer matmuls.  On the card it is five launches
-(seven in bf16): the LN + qkv GEMM over all 3R rows at once
-(``cuda_lib.gemm``; the time-major layout makes the three slabs one matrix),
-the n = 3 attention (``csrc/vit3_attention.cu``, one warp per row and head,
-bound by its bytes), the projection GEMM with bias and residual, then
-``ln_mlp``'s two GEMMs.  The GEMMs carry all but ~0.1% of the flops: in bf16
-the persistent wgmma GEMM of ``csrc/gemm_sm90.cu`` (each LayerNorm's row
-statistics one launch of ``csrc/train_rows.cu`` first), in f32
-``csrc/gemm.cu``'s SIMT loop; qkv, the head outputs and the 4C hidden
-round-trip device memory between launches.
+``_vit3_kernel``), which holds the layer's weights in VMEM and its qkv slabs
+in VMEM scratch, and unrolls the 3x3 attention with head reducer matmuls.
+In bf16 the layer is one call of ``csrc/vit3_sm90.cu`` (``cuda_lib.vit3_fwd``)
+and six launches: ``ln_rows``; at head width 64 (the flagship's 12 heads of
+64) the fused qkv product and n = 3 attention, whose qkv never leaves the SM
+(Wqkv read as torch stores it, ``w_qkv_rows``); the projection with the
+residual on the persistent wgmma GEMM of ``csrc/gemm_sm90.cu``; the MLP tail
+as ``ln_mlp``'s one call (``ln_rows`` and two products at C = 768).  At other
+head widths the qkv GEMM and ``csrc/vit3_attention.cu`` (one warp per row and
+head) take the fused kernel's place.  The products carry all but ~0.1% of
+the flops, so the layer is bound by the tensor cores' rate; the 4C hidden
+still round-trips device memory (a fused MLP does not fit C = 768).  f32
+composes the same seven launches here (:func:`vit3_sequence`) on
+``csrc/gemm.cu``'s SIMT GEMM.
 """
 
 from __future__ import annotations
@@ -36,9 +39,12 @@ __all__ = ["vit3", "vit3_plain", "vit3_operands"]
 def vit3_operands(ln1_g, ln1_b, w_qkv, b_qkv, w_proj, b_proj, ln2_g, ln2_b, w_fc1,
                   b_fc1, w_fc2, b_fc2, heads):
     """Kernel operands from the layer's torch tensors (Linear weights (out,
-    in)); weights are stored (in, out)."""
+    in)); weights are stored (in, out), and the qkv weight also as torch
+    stores it (``w_qkv_rows``, (3C, C), the parameter itself), which the bf16
+    call reads."""
     return {"attn": {"ln_g": ln1_g.detach().contiguous(), "ln_b": ln1_b.detach().contiguous(),
                      "w_qkv": w_qkv.detach().t().contiguous(),
+                     "w_qkv_rows": w_qkv.detach().contiguous(),
                      "b_qkv": b_qkv.detach().contiguous(),
                      "w_proj": w_proj.detach().t().contiguous(),
                      "b_proj": b_proj.detach().contiguous(), "heads": heads},
@@ -77,8 +83,19 @@ def vit3(x, ops):
 
 
 def launch_vit3(x, ops):
-    """The kernel's launches: LN + qkv, n = 3 attention, proj + residual,
-    LN + fc1 + GELU, fc2 + residual."""
+    """The kernel's launches: bf16 one call of ``csrc/vit3_sm90.cu``, f32
+    :func:`vit3_sequence`."""
+    _check_time_major(x)
+    if x.dtype == torch.bfloat16:
+        return cuda_lib.vit3_fwd(x, ops)
+    return vit3_sequence(x, ops)
+
+
+def vit3_sequence(x, ops):
+    """The layer as seven launches from Python: LN + qkv, the n = 3
+    attention (``csrc/vit3_attention.cu``), proj + residual, LN + fc1 + GELU,
+    fc2 + residual (the f32 route; in bf16 the route the port took before
+    the one C call)."""
     _check_time_major(x)
     a, m = ops["attn"], ops["mlp"]
     _, r, c = x.shape

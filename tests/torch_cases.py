@@ -323,13 +323,15 @@ def _mask(mb, P, H, N, strides, mb_dtype):
 
 class ModelLib:
     """What csrc/gemm.cu, gemm_sm90.cu, mlp_sm90.cu, attn_sm90.cu,
-    window_attention.cu, window_attention_bwd.cu, train_rows.cu, wgrad.cu,
-    cva_sample.cu and vit3_attention.cu compute, on the raw buffers the
-    wrappers pass, and the launch sequences of swin_pair.cu and
-    swin_block_train.cu, composed from those."""
+    vit3_sm90.cu, cva_sm90.cu, window_attention.cu, window_attention_bwd.cu,
+    train_rows.cu, wgrad.cu, cva_sample.cu and vit3_attention.cu compute, on
+    the raw buffers the wrappers pass, and the launch sequences of
+    swin_pair.cu, swin_block_train.cu, vit3_sm90.cu and cva_sm90.cu, composed
+    from those."""
 
     def mumpy_gemm(self, x, w, bias, g, b, res, a_map, c_map, y, out, row_scale, aux,
                    aux_out, M, N, K, a_sum, a_seg, act, map_len, scale_div, dtype, stream):
+        assert dtype == 0, "csrc/gemm.cu takes f32 only"
         s = None if row_scale is None else _view(row_scale, -(-M // scale_div), torch.float32)
         return self._gemm(x, w, bias, g, b, res, a_map, c_map, y, out, s, aux, aux_out, M, N,
                           K, a_sum, a_seg, act, map_len, scale_div, DTYPES[dtype])
@@ -785,14 +787,142 @@ class ModelLib:
         _view(o, R * N * ldo, dt).reshape(R * N, ldo)[:, :H * hd].copy_(out.to(dt))
         return 0
 
-    def mumpy_cva_sample(self, x2, gy, gx, s, R, B1, N, C, groups, ws, dtype, stream):
+    def mumpy_cva_sample(self, x2, gy, gx, s, R, B1, N, C, groups, ws, sample_on, dtype,
+                         stream):
         dt = DTYPES[dtype]
         coords = [_view(c, groups * B1 * N, torch.float32).reshape(groups, B1, N)
                   for c in (gy, gx)]
+        if not sample_on:  # the planted fault: the tap at the floor, weight 1
+            coords = [c.floor() for c in coords]
         sampled = cva.sample_plain(_view(x2, R * N * C, dt).reshape(R, N, C), *coords,
                                    groups, ws)
         _view(s, R * N * C, dt).copy_(sampled.reshape(-1))
         return 0
+
+    def mumpy_window_attention_fold(self, q, k, v, o, R, N, H, hd, q_mod, ldq, ldk, ldv, ldo,
+                                    fold, fold_on, scale, dtype, stream):
+        # the core without an additive term into a scratch o, then each run of
+        # fold windows summed in f32 from the rounded o (only the first with
+        # fold_on = 0, the planted fault) and rounded again
+        assert R % fold == 0
+        dt = DTYPES[dtype]
+        c = H * hd
+        full = torch.empty(R * N * c, dtype=dt)
+        self.mumpy_window_attention(q, k, v, full.data_ptr(), None, R, N, H, hd, q_mod, ldq, ldk,
+                                    ldv, c, 1, 0, 0, 0, 0, 0, scale, dtype, stream)
+        runs = full.float().reshape(R // fold, fold, N, c)
+        summed = runs.sum(1) if fold_on else runs[:, 0]
+        _view(o, (R // fold * N - 1) * ldo + c, dt).as_strided(
+            (R // fold * N, c), (ldo, 1)).copy_(summed.reshape(-1, c).to(dt))
+        return 0
+
+    # csrc/vit3_sm90.cu: the fused qkv + n = 3 attention, and #6's call
+    def mumpy_vit3_qkv_attn(self, h, w_qkv, b_qkv, o, R, C, H, stream):
+        # bf16, head width 64, 16-byte aligned operands (the kernel refuses
+        # others); rounded where the kernel rounds: q, k, v, o
+        assert C == 64 * H and all(p % 16 == 0 for p in (h, w_qkv, b_qkv, o)) and h != o
+        bf = torch.bfloat16
+        X = _view(h, 3 * R * C, bf).reshape(3, R, C).float()
+        qkv = (X @ _view(w_qkv, 3 * C * C, bf).float().reshape(3 * C, C).t()
+               + _view(b_qkv, 3 * C, bf).float()).to(bf).float()
+        q, k, v = qkv.reshape(3, R, 3, H, 64).unbind(2)
+        p = torch.softmax(torch.einsum("irhd,jrhd->rhij", q * 0.125, k), -1)
+        out = torch.einsum("rhij,jrhd->irhd", p, v).reshape(-1)
+        _view(o, 3 * R * C, bf).copy_(out.to(bf))
+        return 0
+
+    def mumpy_vit3_scratch(self, R, C, hidden, H):
+        return 256
+
+    def mumpy_vit3_fwd(self, x, w, out, scratch, R, C, hidden, H, stream):
+        # the launches of the C call on buffers of its own: ln_rows, the
+        # fused kernel (else the qkv GEMM and vit3_attention.cu), proj with
+        # the residual, #4's call
+        w = list(w)
+        rows, bf = 3 * R, torch.bfloat16
+        h, o, y = (torch.empty(rows * C, dtype=bf) for _ in range(3))
+        mu, rstd = torch.empty(rows), torch.empty(rows)
+        self.mumpy_ln_rows(x, w[0], w[1], h.data_ptr(), mu.data_ptr(), rstd.data_ptr(), rows, C,
+                           1, 1, stream)
+        if C == 64 * H:
+            self.mumpy_vit3_qkv_attn(h.data_ptr(), w[2], w[3], o.data_ptr(), R, C, H, stream)
+        else:
+            qkv = torch.empty(rows * 3 * C, dtype=bf)
+            self.mumpy_gemm_rows(h.data_ptr(), w[2], w[3], None, None, None, qkv.data_ptr(), None,
+                                 None, None, None, 0, rows, 3 * C, C, 1, 0, 1, 1, stream)
+            self.mumpy_vit3_attention(qkv.data_ptr(), o.data_ptr(), R, H, C // H,
+                                      (C // H) ** -0.5, 1, stream)
+        self.mumpy_gemm_rows(o.data_ptr(), w[4], w[5], x, None, None, None, y.data_ptr(), None,
+                             None, None, 0, rows, C, C, 0, 0, 1, 1, stream)
+        return self.mumpy_ln_mlp_fwd(y.data_ptr(), w[6:], out, None, rows, C, hidden, 1, 1,
+                                     stream)
+
+    # csrc/cva_sm90.cu: the fused core, and #5's call
+    def mumpy_cva_rows(self, x1, x2, gy, gx, w_q, b_q, w_kv, b_kv, w_proj, out, B1, R, N, C, H,
+                       groups, ws, sample_on, fold_on, key_mask_on, stream):
+        # bf16, head width 32, C <= 256, N = ws^2 <= 64, 16-byte aligned
+        # operands (the kernel refuses others); rounded where the kernel
+        # rounds: s, q, k, v, P, each head's o, out.  Each partner window's s
+        # is zero past row N (its 64-row slot), so keys >= N hold the k and v
+        # biases; they are masked unless key_mask_on = 0, the planted fault.
+        # The projection accumulates in f32 over heads and ratio steps
+        assert C == 32 * H and C <= 256 and N == ws * ws <= 64 and R % B1 == 0
+        assert (C // groups) % 8 == 0 and all(
+            p % 16 == 0 for p in (x1, x2, w_q, b_q, w_kv, b_kv, w_proj, out))
+        bf = torch.bfloat16
+        ratio = R // B1
+        X1 = _view(x1, B1 * N * C, bf).reshape(B1, N, C)
+        X2 = _view(x2, R * N * C, bf).reshape(R, N, C)
+        GY, GX = (_view(c, groups * B1 * N, torch.float32).reshape(groups, B1, N)
+                  for c in (gy, gx))
+        if not sample_on:  # the planted fault: the tap at the floor, weight 1
+            GY, GX = GY.floor(), GX.floor()
+        Wq = _view(w_q, C * C, bf).float().reshape(C, C)
+        Wkv = _view(w_kv, 2 * C * C, bf).float().reshape(2 * C, C)
+        Wp = _view(w_proj, C * C, bf).float().reshape(C, C)
+        bq, bkv = _view(b_q, C, bf).float(), _view(b_kv, 2 * C, bf).float()
+        acc = torch.zeros(B1, N, C)
+        for t in range(ratio if fold_on else 1):
+            js = torch.arange(B1) * ratio + t
+            qw = js % B1
+            s = cva.sample_plain(X2[js], GY[:, qw], GX[:, qw], groups, ws).float()
+            s = torch.cat([s, torch.zeros(B1, 64 - N, C)], 1)  # the slot's 64 rows
+            q = (X1[qw].float() @ Wq.t() + bq).to(bf).float().reshape(B1, N, H, 32)
+            kv = (s @ Wkv.t() + bkv).to(bf).float()
+            k, v = (u.reshape(B1, 64, H, 32) for u in (kv[..., :C], kv[..., C:]))
+            sc = torch.einsum("bihd,bjhd->bhij", q, k) * 32**-0.5
+            sc[..., N:] += -1e30 if key_mask_on else 0.0
+            prob = torch.softmax(sc, -1).to(bf).float()
+            o = torch.einsum("bhij,bjhd->bihd", prob, v).to(bf).float().reshape(B1, N, C)
+            acc += o @ Wp
+        _view(out, B1 * N * C, bf).copy_(acc.to(bf).reshape(-1))
+        return 0
+
+    def mumpy_cva_scratch(self, B1, R, N, C, H, groups, ws):
+        return 256
+
+    def mumpy_cva_fwd(self, x1, x2, gy, gx, w, out, scratch, B1, R, N, C, H, groups, ws,
+                      sample_on, fold_on, key_mask_on, stream):
+        # the fused kernel where it takes the widths, else the five launches
+        # of the C call on buffers of its own
+        w = list(w)
+        if C == 32 * H and C <= 256 and N == ws * ws <= 64 and (C // groups) % 8 == 0:
+            return self.mumpy_cva_rows(x1, x2, gy, gx, *w, out, B1, R, N, C, H, groups, ws,
+                                       sample_on, fold_on, key_mask_on, stream)
+        bf, hd = torch.bfloat16, C // H
+        q, o = (torch.empty(B1 * N * C, dtype=bf) for _ in range(2))
+        s, kv = torch.empty(R * N * C, dtype=bf), torch.empty(R * N * 2 * C, dtype=bf)
+        self.mumpy_gemm_rows(x1, w[0], w[1], None, None, None, q.data_ptr(), None, None, None,
+                             None, 0, B1 * N, C, C, 1, 0, 1, 1, stream)
+        self.mumpy_cva_sample(x2, gy, gx, s.data_ptr(), R, B1, N, C, groups, ws, sample_on, 1,
+                              stream)
+        self.mumpy_gemm_rows(s.data_ptr(), w[2], w[3], None, None, None, kv.data_ptr(), None,
+                             None, None, None, 0, R * N, 2 * C, C, 1, 0, 1, 1, stream)
+        self.mumpy_window_attention_fold(q.data_ptr(), kv.data_ptr(), kv.data_ptr() + 2 * C,
+                                         o.data_ptr(), R, N, H, hd, B1, C, 2 * C, 2 * C, C,
+                                         R // B1, fold_on, hd**-0.5, 1, stream)
+        return self.mumpy_gemm_rows(o.data_ptr(), w[4], None, None, None, None, out, None, None,
+                                    None, None, 0, B1 * N, C, C, 0, 0, 1, 1, stream)
 
     def mumpy_vit3_attention(self, qkv, o, R, H, hd, scale, dtype, stream):
         # token t, row r, head h: q at (t*R + r)*3C + h*hd, k at +C, v at +2C
