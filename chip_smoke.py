@@ -158,6 +158,39 @@ d. bf16 frames/s at batch 32 of the attention set beside the blocks set's
    N = 49: ~25 flops per byte), and the device ms and launches of each
    kernel of #7's step by name (``torch.profiler``).
 
+Scaling out, after phase d (e) and after phase 11 (f, g):
+
+e. the batch-32 forward (``make_serving_forward`` over a list of devices,
+   ``utils.serving.SplitForward``) split over every visible card
+   (``parallel.serving_devices``) and over two replicas on ``cuda:0`` in two
+   host threads (the one-card check of the split and its threading), f32
+   and bf16, against the one-device forward: f32 probabilities within 1e-5;
+   bf16 ones no further from the one-device f32 ones than twice the
+   one-device bf16 forward's (torch's products and convolutions take
+   another order at another batch size), the difference from the
+   one-device bf16 forward printed; launches per
+   replica 12 / 18 / 12 / 12 / 8 / 12; frames/s of one device (before and
+   after) and of the split, by CUDA events;
+f. data-parallel training on the flagship's 12 rows (6 clips x 2 streams),
+   spawned ranks joined within 900 s: NCCL at world size = the card count,
+   then two gloo ranks on the one card (NCCL refuses two ranks on one
+   device).  One kernel-path step on the same global batch and keeps
+   against the one-process kernel-path step: f32 loss within 1e-5
+   relative; each f32 gradient against the one-process f64 plain step by
+   relative L2, within 1e-3 or twice the one-process f32 step's error (phase
+   8's bound: a row split reorders f32 sums that cancel), its distance to
+   the one-process f32 step printed; each bf16 gradient's error against the
+   one-process f32 step no larger than twice the one-process bf16 step's (a
+   gradient zero to rounding held to its share, as in phase 8); four steps
+   f32 and bf16 with the loss (averaged
+   over the ranks) finite and falling, and the step ms; one epoch of the
+   train CLI under the same group (bf16, ``-num_workers 2``), whose rank-0
+   checkpoint ``serve.py`` then serves;
+g. the bf16 training epoch on synthetic 224^2 clips with the loader's
+   batches assembled by 4 worker processes and by none: the batches
+   identical (by hash), and for each the step ms of an epoch and the
+   device-idle share (two steps under ``torch.profiler``).
+
 The weights are drawn with ``random_state_dict(..., fan_in=True)``: matrices
 at 1/sqrt(fan-in) and relative-position tables at unit scale, so every score,
 mask+bias term and branch is of order one at every width, and a kernel that
@@ -172,6 +205,7 @@ The second-to-last line of output is a JSON object with one entry per kernel
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -702,6 +736,18 @@ def train_work(name, args):
     return flops, nbytes + KEEPS[name] * args[-1].numel() * 4
 
 
+def synthetic_batch(rng, b, size):
+    """A seeded training batch of ``b`` rows: normal clips, one seeded
+    rectangle a mask."""
+    clip = torch.from_numpy(rng.standard_normal((b, 3, size, size, 3), dtype=np.float32))
+    mask = np.zeros((b, size, size), np.float32)
+    for i in range(b):  # one seeded rectangle per clip
+        y0, x0 = rng.integers(0, size * 2 // 3, size=2)
+        h, w = rng.integers(size // 10, size // 3, size=2)
+        mask[i, y0:y0 + h, x0:x0 + w] = 1.0
+    return {"image": clip, "mask": mask.reshape(b, -1)}
+
+
 def training_phases(cfg, dev, smi, rng):
     """Phases 7-11 and c on the flagship ``cfg``.  Returns the three training
     kernels' result entries and the window-attention kernel's timings per
@@ -725,13 +771,8 @@ def training_phases(cfg, dev, smi, rng):
     all_kernels = (swin_block.swin_block, swin_pair.swin_pair, attn_ln.attn_ln, ln_mlp.ln_mlp,
                    cva.cva, vit3.vit3, window_attention, *train_kernels.values())
     b, size = 2 * TRAIN_CLIPS, cfg.image_size
-    clip = torch.from_numpy(rng.standard_normal((b, 3, size, size, 3), dtype=np.float32))
-    mask = np.zeros((b, size, size), np.float32)
-    for i in range(b):  # one seeded rectangle per clip
-        y0, x0 = rng.integers(0, size * 2 // 3, size=2)
-        h, w = rng.integers(size // 10, size // 3, size=2)
-        mask[i, y0:y0 + h, x0:x0 + w] = 1.0
-    batch = {"image": clip, "mask": mask.reshape(b, -1)}
+    batch = synthetic_batch(rng, b, size)
+    clip = batch["image"]
     model = build_model(cfg, dev).train()
     init = {k: v.clone() for k, v in model.state_dict().items()}
 
@@ -1793,15 +1834,360 @@ def train_closure(name, args, cots, kernel):
 SYNTH_SEQS, SYNTH_FRAMES = 2, 6  # 12 clips: two train steps of 6 clips x 2 streams
 
 
-def write_synthetic_clips(root, rng, size):
+# ---- e, f, g: the split serving, data-parallel training, the loader ----
+
+SPLIT_TOL = 1e-5  # f32 probabilities, split vs one device
+DP_LOSS_TOL = 1e-5  # W ranks vs one process, f32 loss, kernel path
+DP_TIMEOUT = 900  # seconds a spawned run may take; a collective waits at most 600
+LOADER_SEQS, LOADER_FRAMES = 4, 12  # 48 clips: eight steps of 6 clips x 2 streams
+TRACED_STEPS = 2  # steps of phase g under torch.profiler
+
+
+def split_serving_phase(cfg, dev, clip32, smi, kernels):
+    """Phase e: the batch-32 forward split over every visible card and over
+    two replicas on ``cuda:0`` (two threads: the one-card check of the split
+    and its threading), against the one-device forward: f32 probabilities
+    within SPLIT_TOL; bf16 ones no further from the one-device f32 ones than
+    twice the one-device bf16 forward's (phase 4's rule: torch's own
+    products and convolutions round in another order at another batch size,
+    which bf16 shows; the difference from the one-device bf16 forward is
+    printed); the launches of every replica; frames/s of both.  Returns
+    False on a failure."""
+    from mumpy_tpu_torch.parallel import serving_devices
+    from mumpy_tpu_torch.utils.serving import SplitForward, make_serving_forward
+
+    import copy
+
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    x = clip32.to(dev)
+    base = build_model(cfg, dev)
+    ok, f32 = True, None
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        one = make_serving_forward(copy.deepcopy(base), dev, dtype)
+        want = one(x)
+        if f32 is None:
+            f32 = want
+        one_off = (want - f32).abs().max().item()  # the one-device forward's own bf16 error
+        for label, devices in (("every visible card", serving_devices(32, cards)),
+                               ("two replicas on cuda:0", [dev, dev])):
+            split = make_serving_forward(copy.deepcopy(base), devices, dtype)
+            try:
+                for k in kernels:
+                    k.launches = 0
+                got = split(x)
+                torch.cuda.synchronize()
+                n = len(devices)
+                counts = {k.__name__: k.launches for k in kernels}
+                per_replica = {k: v / n for k, v in counts.items()}
+                got = got.to(dev)
+                err = (got - want).abs().max().item()
+                off = (got - f32).abs().max().item()
+                within = (err <= SPLIT_TOL if dtype == torch.float32 else off <= 2 * one_off)
+                finite = bool(torch.isfinite(got).all()) and tuple(got.shape) == (32, 224, 224, 1)
+                good = within and finite and counts == {
+                    **dict.fromkeys(counts, 0), **{k: n * v for k, v in EXPECTED_LAUNCHES.items()}}
+                ms_one = cuda_ms(lambda: one(x), reps=3)
+                ms_split = cuda_ms(lambda: split(x), reps=3)
+                ms_one2 = cuda_ms(lambda: one(x), reps=3)
+            finally:
+                if isinstance(split, SplitForward):
+                    split.close()
+            ok &= good
+            bound = (f"bound {SPLIT_TOL:g}" if dtype == torch.float32 else
+                     f"vs the one-device f32: split {off:.3g}, one device {one_off:.3g}, bound 2x")
+            log(f"[split] {dname} batch 32 over {label} ({n} replica{'s' * (n > 1)}: "
+                f"{', '.join(map(str, devices))}): probabilities max |split - one device| "
+                f"{err:.3g} ({bound}), finite {finite}; launches per replica {per_replica}; "
+                f"{32e3 / ms_one:.1f} / {32e3 / ms_one2:.1f} frames/s on one device, "
+                f"{32e3 / ms_split:.1f} split ({ms_one:.1f} / {ms_one2:.1f} / {ms_split:.1f} ms a "
+                f"batch, CUDA events) {'ok' if good else 'FAIL'} ({smi})")
+        del one, want
+        torch.cuda.empty_cache()
+    del base
+    return ok
+
+
+def dp_errors(d32, d16, g32, g16, g64):
+    """Phase f's comparison of this run's step (``d*``: (loss, gradients),
+    the gradients averaged over the ranks) with the one-process steps on the
+    same global batch and keeps (``g*``; kernel path, ``g64`` the plain
+    path in f64).  The f32 loss by relative error.  Each f32 gradient by
+    relative L2 of its own norm against the f64 one, within GRAD_TOL or
+    twice the one-process f32 step's error, as phase 8 holds the kernel path
+    (a row split reorders f32 sums that cancel: the same one-process step
+    run twice differs by ~2.5e-5 on the card, a 6 + 6 split by up to ~2e-3
+    on a deep relative-position table); its distance to the one-process f32
+    step is printed.  Each bf16 gradient's error against the one-process f32
+    one beside the one-process bf16 step's, within twice.  A gradient zero
+    to rounding (below ZERO_GRAD of its share of the whole, phase 8) is held
+    to that share."""
+    rms_all = (sum(g.pow(2).sum() for g in g64[1].values())
+               / sum(g.numel() for g in g64[1].values())).sqrt().item()
+    e32, k32, d_one, e16, o16, floored = {}, {}, {}, {}, {}, []
+    for k, ref in g64[1].items():
+        own, share = ref.norm().item(), rms_all * ref.numel() ** 0.5
+        if own < ZERO_GRAD * share:
+            floored.append(k)
+            own = share
+        e32[k] = (d32[1][k].double() - ref).norm().item() / own
+        k32[k] = (g32[1][k].double() - ref).norm().item() / own
+        d_one[k] = (d32[1][k].double() - g32[1][k].double()).norm().item() / own
+        g = g32[1][k].double()
+        e16[k] = (d16[1][k].double() - g).norm().item() / own
+        o16[k] = (g16[1][k].double() - g).norm().item() / own
+    over32 = sorted(k for k in e32 if e32[k] > max(GRAD_TOL, 2 * k32[k]))
+    over16 = sorted(k for k in e16 if e16[k] > 2 * o16[k])
+    worst16 = max(e16, key=lambda k: e16[k] / max(o16[k], 1e-30))
+    worst32 = max(e32, key=lambda k: e32[k] / max(GRAD_TOL, 2 * k32[k]))
+    loss_err = abs(d32[0] - g32[0]) / abs(g32[0])
+    return {"loss": d32[0], "one_process_loss": g32[0], "loss_rel_err": loss_err,
+            "bf16_loss": d16[0], "one_process_bf16_loss": g16[0],
+            "f32_vs_f64_max": max(e32.values()), "one_process_f32_vs_f64_max": max(k32.values()),
+            "f32_worst": worst32, "f32_worst_err": e32[worst32],
+            "f32_worst_one_process_err": k32[worst32],
+            "f32_vs_one_process_max": max(d_one.values()),
+            "f32_vs_one_process_median": float(np.median(list(d_one.values()))),
+            "bf16_vs_f32_max": max(e16.values()), "one_process_bf16_vs_f32_max": max(o16.values()),
+            "bf16_ratio_max": e16[worst16] / max(o16[worst16], 1e-30), "bf16_worst": worst16,
+            "zero_to_rounding": floored, "over_f32": over32, "over_bf16": over16,
+            "ok": loss_err <= DP_LOSS_TOL and not over32 and not over16}
+
+
+def dp_rank(rank, world, port, backend, root):
+    """Phase f, one rank (spawned): the process group from the variables
+    torchrun would set; one kernel-path step f32 and bf16 on its rows of the
+    global batch with the global keeps (rank 0 then also the one-process
+    steps on the whole batch, and their comparison); four steps f32 and bf16
+    with the loss averaged over the ranks and the step ms; one epoch of the
+    train CLI under the same group (rank 0 writes its checkpoint).  Rank 0
+    writes ``report.json`` under ``root``."""
+    import datetime
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_cases as tc
+    from mumpy_tpu_torch.configs import multiswin_config
+    from mumpy_tpu_torch.parallel.dist import Dist, all_reduce_mean, init_from_env, row_shard
+    from mumpy_tpu_torch.train import __main__ as train_cli
+    from mumpy_tpu_torch.train.optim import OptimConfig, Optimizer
+    from mumpy_tpu_torch.train.trainer import TrainState, train_step
+    from mumpy_tpu_torch.utils.serving import set_kernel_path
+
+    tc.rank_env(rank, world, port, local_rank=rank if backend == "nccl" else 0)
+    dist = init_from_env("cuda", backend=backend, timeout=datetime.timedelta(seconds=600))
+    dev = dist.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = multiswin_config()
+    rows = 2 * TRAIN_CLIPS
+    batch = synthetic_batch(np.random.default_rng(SEED + 11), rows, cfg.image_size)
+    mine = row_shard(rows, world, rank)
+    local = {k: v[mine.start:mine.stop] for k, v in batch.items()}
+    model = build_model(cfg, dev).train()
+    set_kernel_path(model, True)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def fresh(on):
+        model.load_state_dict(init)
+        return TrainState(model, Optimizer(model.named_parameters(), OptimConfig(),
+                                           iter_max=100), dist=on)
+
+    def reduced_loss(out, on):
+        loss = out["total"].float().reshape(1)
+        all_reduce_mean([loss], on)
+        return loss.item()
+
+    def step(part, on, dtype, use_kernels=True):
+        """(loss averaged over the ranks, {name: gradient, f32 or f64}) of
+        one step from the initial weights, on the same keeps as every other
+        run."""
+        set_kernel_path(model, use_kernels)
+        out = train_step(fresh(on), part, torch.Generator(device=dev).manual_seed(SEED + 1),
+                         dtype)
+        set_kernel_path(model, True)
+        wide = torch.float64 if dtype == torch.float64 else torch.float32
+        return reduced_loss(out, on), {n: p.grad.to(wide).clone()
+                                       for n, p in model.named_parameters()}
+
+    report = {"world": world, "backend": backend, "rows_per_rank": len(mine)}
+    d32, d16 = step(local, dist, None), step(local, dist, torch.bfloat16)
+    if dist.is_main:  # the one-process steps on the whole batch; f64 on the plain path
+        one = Dist(device=dev)
+        report.update(dp_errors(d32, d16, step(batch, one, None),
+                                step(batch, one, torch.bfloat16),
+                                step(batch, one, torch.float64, use_kernels=False)))
+    del d32, d16
+    torch.cuda.empty_cache()
+    for dtype, dname in ((None, "f32"), (torch.bfloat16, "bf16")):
+        state = fresh(dist)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        losses, ms = [], []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(reduced_loss(train_step(state, local, gen, dtype), dist))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        report[f"{dname}_losses"], report[f"{dname}_step_ms"] = losses, ms
+    report["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del model, init
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        train_cli.main(["-model_name", "smoke", "-results_dir", str(Path(root) / "results"),
+                        "-dataset", "davis", "-batch_size", str(TRAIN_CLIPS), "-max_epoch", "1",
+                        "-print_every", "1", "-num_workers", "2", "-seq_dir",
+                        str(Path(root) / "vi"), "-seq_dir2", str(Path(root) / "cp"),
+                        "-annot_dir", str(Path(root) / "annot"), "--bf16"])
+    report["cli_seconds"], report["cli_said"] = time.perf_counter() - t0, said.getvalue()
+    if dist.is_main:
+        (Path(root) / "report.json").write_text(json.dumps(report))
+    torch.distributed.destroy_process_group()
+
+
+def data_parallel_phase(cfg, smi, rng):
+    """Phase f: ``dp_rank`` spawned at world size = the card count with NCCL,
+    and as two gloo ranks on the one card (NCCL refuses two ranks on one
+    device), each run joined within DP_TIMEOUT; then ``serve.py`` on the
+    checkpoint its CLI epoch wrote.  Returns False on a failure."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_cases as tc
+    from mumpy_tpu_torch import serve
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+    for backend, world in (("nccl", torch.cuda.device_count()), ("gloo", 2)):
+        tag = f"[dp {backend} x{world}]"
+        shutil.rmtree(root, ignore_errors=True)
+        write_synthetic_clips(root, rng, cfg.image_size)
+        t0 = time.perf_counter()
+        try:
+            tc.spawn_ranks(dp_rank, world, (world, tc.free_port(), backend, str(root)),
+                           timeout=DP_TIMEOUT)
+        except Exception as exc:  # a rank that raised, exited non-zero or hung
+            log(f"{tag} FAILED: {exc}")
+            return False
+        r = json.loads((root / "report.json").read_text())
+        log(f"{tag} {world} rank{'s' * (world > 1)}, {r['rows_per_rank']} of 12 rows each, "
+            f"spawned and joined in {time.perf_counter() - t0:.1f} s")
+        log(f"{tag} one kernel-path step against the one-process step (same global batch and "
+            f"keeps): f32 loss {r['loss']:.6f} vs {r['one_process_loss']:.6f} (rel err "
+            f"{r['loss_rel_err']:.3g}, bound {DP_LOSS_TOL:g}); f32 gradients vs the one-process "
+            f"f64 plain step, rel L2: max {r['f32_vs_f64_max']:.3g} (the one-process f32 step "
+            f"{r['one_process_f32_vs_f64_max']:.3g}; nearest its bound: {r['f32_worst']} "
+            f"{r['f32_worst_err']:.3g} against the one-process {r['f32_worst_one_process_err']:.3g},"
+            f" bound max({GRAD_TOL:g}, 2x)); vs the one-process f32 step: max "
+            f"{r['f32_vs_one_process_max']:.3g}, median {r['f32_vs_one_process_median']:.3g}; "
+            f"bf16 gradients vs the "
+            f"one-process f32: max {r['bf16_vs_f32_max']:.3g}, the one-process bf16 step's max "
+            f"{r['one_process_bf16_vs_f32_max']:.3g}, largest ratio {r['bf16_ratio_max']:.3g} "
+            f"({r['bf16_worst']}; bound 2); {len(r['zero_to_rounding'])} gradients zero to "
+            f"rounding held to their share; over the bounds: f32 {r['over_f32'] or 'none'}, "
+            f"bf16 {r['over_bf16'] or 'none'}")
+        falls = True
+        for dname in ("f32", "bf16"):
+            losses, ms = r[f"{dname}_losses"], r[f"{dname}_step_ms"]
+            falls &= bool(np.all(np.isfinite(losses))) and losses[-1] < losses[0]
+            log(f"{tag} {dname} 4 steps on one batch: losses (averaged over the ranks) "
+                f"{[round(v, 5) for v in losses]}; step ms {[round(v, 1) for v in ms]}, peak "
+                f"{r['peak_gib']:.2f} GiB on rank 0 ({smi})")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            serve.main(["-model_name", "smoke", "-results_dir", str(root / "results"),
+                        "-dataset", "davis", "-seq_dir", str(root / "vi"), "-batch_size",
+                        str(TRAIN_CLIPS), "-test_epoch", "0", "--bf16"])
+        n_masks = sum(len(f) for _, _, f in os.walk(root / "results" / "smoke" / "masks_davis"))
+        served = "Loaded checkpoint of epoch 0" in said.getvalue()
+        log(f"{tag} the train CLI's epoch (bf16, -num_workers 2) in {r['cli_seconds']:.1f} s: "
+            + " | ".join(line for line in r["cli_said"].splitlines() if line.startswith("Epoch"))
+            + f"; rank 0's ckpt_0.pt served (-test_epoch 0): {served}, {n_masks} masks")
+        shutil.rmtree(root, ignore_errors=True)
+        if not (r["ok"] and falls and served and n_masks == SYNTH_SEQS * SYNTH_FRAMES):
+            log(f"{tag} FAILED")
+            return False
+    return True
+
+
+def loader_phase(cfg, dev, smi, rng):
+    """Phase g: the training epoch on synthetic 224^2 clips (two streams,
+    eight bf16 steps of 6 clips x 2 streams) with the loader's batches
+    assembled by 4 worker processes and on the training thread, in turns
+    (4, 0, 0, 4): the batches identical (by hash: two steps, an epoch, two
+    steps), the step ms of the untraced epoch and the device-idle share
+    (the device ms a step of the last two steps, traced, over it).  Returns
+    False on a failure."""
+    from mumpy_tpu_torch.data import DataLoader, TrainClips, davis_config
+    from mumpy_tpu_torch.train.optim import OptimConfig, Optimizer
+    from mumpy_tpu_torch.train.trainer import TrainState, train_step
+    from mumpy_tpu_torch.utils.serving import set_kernel_path
+
+    size = cfg.image_size
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_loader"
+    shutil.rmtree(root, ignore_errors=True)
+    write_synthetic_clips(root, rng, size, LOADER_SEQS, LOADER_FRAMES)
+    ds = TrainClips(davis_config(sequences=str(root / "vi"), sequences2=str(root / "cp"),
+                                 annotations=str(root / "annot"), input_res=(size, size)),
+                    "train")
+    model = build_model(cfg, dev).train()
+    set_kernel_path(model, True)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    seen, step_ms = [], {4: [], 0: []}
+    for workers in (4, 0, 0, 4):
+        loader = DataLoader(ds, TRAIN_CLIPS, shuffle=True, drop_last=True, seed=SEED,
+                            normalize_on_host=False, num_workers=workers)
+        model.load_state_dict(init)
+        state = TrainState(model, Optimizer(model.named_parameters(), OptimConfig(),
+                                            iter_max=100))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        hashes = []
+
+        def epoch(limit=None):
+            steps = 0
+            for batch in loader:
+                hashes.append(hashlib.sha256(batch["image"].tobytes()
+                                             + batch["mask"].tobytes()).hexdigest())
+                train_step(state, batch, gen, torch.bfloat16)
+                steps += 1
+                if steps == limit:
+                    break
+            torch.cuda.synchronize()
+            return steps
+
+        try:
+            epoch(TRACED_STEPS)  # the pool's start and the first calls
+            t0 = time.perf_counter()
+            steps = epoch()
+            wall = (time.perf_counter() - t0) * 1e3
+            # the first steps of the next epoch, under the profiler
+            busy = sum(t for t, _ in device_kernels(lambda: epoch(TRACED_STEPS)).values())
+            busy /= TRACED_STEPS
+        finally:
+            loader.close()
+        seen.append(hashes)
+        step_ms[workers].append(wall / steps)
+        where = f"in {workers} worker processes" if workers else "on the training thread"
+        log(f"[loader] -num_workers {workers}: {wall / steps:.1f} ms per bf16 step over an "
+            f"epoch of {steps} steps, batches assembled {where}; device busy {busy:.1f} ms a "
+            f"step ({TRACED_STEPS} traced steps), idle {100 - 100 * busy * steps / wall:.1f}% "
+            f"({smi})")
+    per_epoch = LOADER_SEQS * LOADER_FRAMES // TRAIN_CLIPS
+    same = all(h == seen[0] for h in seen) and len(seen[0]) == per_epoch + 2 * TRACED_STEPS
+    log(f"[loader] step ms, 4 workers {[round(v, 1) for v in step_ms[4]]} against none "
+        f"{[round(v, 1) for v in step_ms[0]]} (4, 0, 0, 4); "
+        f"{len(seen[0])} batches a run (two steps, an epoch, two steps), identical in the four "
+        f"runs (sha256 of frames and masks): {same}")
+    shutil.rmtree(root, ignore_errors=True)
+    return same
+
+
+def write_synthetic_clips(root, rng, size, seqs=SYNTH_SEQS, frames=SYNTH_FRAMES):
     """Two inpainting streams of size^2 PNG frames and their annotations."""
     from PIL import Image
 
-    for s in range(SYNTH_SEQS):
+    for s in range(seqs):
         name = f"seq{s}"
         for sub in ("vi", "cp", "annot"):
             os.makedirs(root / sub / name, exist_ok=True)
-        for i in range(SYNTH_FRAMES):
+        for i in range(frames):
             for sub in ("vi", "cp"):
                 Image.fromarray(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)).save(
                     root / sub / name / f"{i:05d}.png")
@@ -2042,11 +2428,26 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    # ---- e. the batch split over every card, and over two replicas on one ----
+    if not split_serving_phase(cfg, dev, clip32, smi, ALL_KERNELS):
+        log("[split] FAILED")
+        return 1
+
     # ---- 7-11 and c. the training path ----
     trained = training_phases(cfg, dev, smi, rng)
     if trained is None:
         return 1
     train_entries, attn_step = trained
+    torch.cuda.empty_cache()
+
+    # ---- f. data-parallel training: NCCL over the cards, two gloo ranks on one ----
+    if not data_parallel_phase(cfg, smi, rng):
+        return 1
+
+    # ---- g. the loader: 4 worker processes against none ----
+    if not loader_phase(cfg, dev, smi, rng):
+        log("[loader] FAILED")
+        return 1
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"mumpy_tpu_torch/ops/{name}.py",

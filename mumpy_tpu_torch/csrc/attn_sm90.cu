@@ -335,13 +335,8 @@ int launch_attn(AttnArgs p, const void* w_qkv, const void* w_proj, cudaStream_t 
   using S = AttnSmem<NC>;
   p.tiles = (p.R + S::kCons - 1) / S::kCons;
   p.mask_smem = p.P == 1 && p.H * p.N * p.N * 4 + 256 <= S::kMask;
-  static bool attr = false;  // once per process (one device)
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_rows_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
-    if (err != cudaSuccess) return (int)err;
-    attr = true;
-  }
+  static SmemAttr attr;  // once per device
+  if (const int err = attr.raise(attn_rows_kernel<NC>, S::kBytes)) return err;
   // x (R N, C): boxes of 64 columns x 64 rows, a window's slot; Wqkv (3C, C):
   // 64 x 32, a head's q, k or v rows; Wproj (C, C): 64 columns x 32 rows
   CUtensorMap x_tmap, wqkv_tmap, wproj_tmap;

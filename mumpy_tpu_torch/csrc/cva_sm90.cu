@@ -411,13 +411,8 @@ int launch_cva(CvaArgs p, const void* x1, const void* x2, const void* w_q, const
                const void* w_proj, int R, cudaStream_t stream) {
   using S = CvaSmem<NC>;
   p.tiles = (p.B1 + S::kCons - 1) / S::kCons;
-  static bool attr = false;  // once per process (one device)
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cva_rows_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
-    if (err != cudaSuccess) return (int)err;
-    attr = true;
-  }
+  static SmemAttr attr;  // once per device
+  if (const int err = attr.raise(cva_rows_kernel<NC>, S::kBytes)) return err;
   // x1 (B1 N, C) and x2 (R N, C): boxes of 64 columns x 64 rows, a window's
   // slot; Wq (C, C) and Wk|Wv (2C, C): 64 x 32, a head's q, k or v rows;
   // Wproj (C, C): 64 columns x 32 rows

@@ -445,13 +445,8 @@ extern "C" int mumpy_gemm_rows(const void* a, const void* b, const void* bias, c
       !aligned16(aux) || !aligned16(y) || !aligned16(out) || !aligned16(aux_out))
     return (int)cudaErrorInvalidValue;
   static_assert(kPSmem <= 232448, "the ring, the staging and the barriers fit in 227 KB");
-  static bool attr = false;  // once per process (one device)
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gemm_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPSmem);
-    if (err != cudaSuccess) return (int)err;
-    attr = true;
-  }
+  static SmemAttr attr;  // once per device
+  if (const int err = attr.raise(gemm_rows_kernel, (int)kPSmem)) return err;
   // B: K-major (N, K) boxes of 64 K x 128 rows, or N-major (K, N) boxes of
   // 64 N x 64 K; A (unmapped): (M, K) boxes of 64 K x 128 rows
   CUtensorMap a_tmap{}, b_tmap;
@@ -490,13 +485,8 @@ extern "C" int mumpy_gemm_sm90_tn(const void* a, const void* b, float* ws, void*
   constexpr size_t smem = (size_t)kTnStages * kTnStage + 1024;
   static_assert(kTnBM * kStgPitch * sizeof(float) <= kTnStages * kTnStage,
                 "the epilogue staging fits in the ring");
-  static bool attr = false;  // once per process (one device)
-  if (!attr) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(gemm_tn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attr = true;
-  }
+  static SmemAttr attr;  // once per device
+  if (const int err = attr.raise(gemm_tn_kernel, (int)smem)) return err;
   const dim3 grid((N + kTnBN - 1) / kTnBN, (M + kTnBM - 1) / kTnBM,
                   (rows + rows_per_split - 1) / rows_per_split);
   gemm_tn_kernel<<<grid, 128, smem, static_cast<cudaStream_t>(stream)>>>(p);

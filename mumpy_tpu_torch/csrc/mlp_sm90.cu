@@ -286,13 +286,8 @@ __global__ void __launch_bounds__(kMlpThreads, 1)
 template <int NC>
 int launch_mlp(const MlpArgs& p, const void* w1, const void* w2, cudaStream_t stream) {
   using S = MlpSmem<NC>;
-  static bool attr = false;  // once per process (one device)
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mlp_rows_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
-    if (err != cudaSuccess) return (int)err;
-    attr = true;
-  }
+  static SmemAttr attr;  // once per device
+  if (const int err = attr.raise(mlp_rows_kernel<NC>, S::kBytes)) return err;
   // W1 (C, hidden): boxes of 64 hidden columns x C rows; W2 (hidden, C): 64 x 64
   // x (M, C): boxes of 64 columns x 128 rows, the A tile's panels
   CUtensorMap x_tmap, w1_tmap, w2_tmap;

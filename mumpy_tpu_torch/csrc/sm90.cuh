@@ -2,9 +2,11 @@
 // (gemm_sm90.cu, mlp_sm90.cu, attn_sm90.cu): the wgmma synchronisation and
 // shared-memory descriptors, mbarriers, TMA loads, the LayerNorm of rows in a
 // landed A tile, and on the host the tensor maps (encoded
-// through the runtime's driver entry point, so nothing new is linked) and
-// the SM count.
+// through the runtime's driver entry point, so nothing new is linked), and
+// the per-device SM count and shared-memory attribute.
 #pragma once
+
+#include <atomic>
 
 #include <cuda.h>  // CUtensorMap and its encoder's types (found through the runtime)
 
@@ -187,12 +189,10 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled, found through the runtime's entry-point query so
-// that nothing new is linked; null where it is missing
+// that nothing new is linked; null where it is missing.  Looked up once, in
+// a static initialiser, which two launching threads cannot race through.
 inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  static bool looked = false;
-  if (!looked) {
-    looked = true;
+  static const EncodeTiled fn = [] {
     void* f = nullptr;
     cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
@@ -202,22 +202,55 @@ inline EncodeTiled encode_tiled() {
     const cudaError_t err =
         cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
 #endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
   return fn;
 }
 
+// Per-device launch state is indexed by the calling thread's current device
+// (cudaGetDevice), so that one process may launch on several cards, from a
+// thread each or in turn.
+constexpr int kMaxDevices = 64;
+
+// The SM count of the current device, read once per device (132 where it
+// cannot be read: the grids only cap at it)
 inline int sm_count() {
-  static int n = 0;
+  static std::atomic<int> counts[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 132;
+  int n = counts[dev].load(std::memory_order_relaxed);
   if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
       n = 132;
+    counts[dev].store(n, std::memory_order_relaxed);
   }
   return n;
 }
+
+// A kernel's dynamic shared-memory limit, raised once on each device: the
+// attribute belongs to the kernel as loaded on the current device, so a
+// launch on a second card needs a call of its own.  Two threads on one
+// device may both make the call (with the same value); the flag is set only
+// after a call succeeded, and a failed call's error is returned, launch by
+// launch.
+struct SmemAttr {
+  std::atomic<bool> done[kMaxDevices];
+
+  template <typename Kernel>
+  int raise(Kernel* kernel, int bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (done[dev].load(std::memory_order_acquire)) return 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    done[dev].store(true, std::memory_order_release);
+    return 0;
+  }
+};
 
 // A 2-D tensor map of a row-major (rows, cols) bf16 matrix, boxes of 64
 // columns (one 128-byte swizzled line) by box_rows rows

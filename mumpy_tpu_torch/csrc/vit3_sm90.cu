@@ -286,13 +286,8 @@ extern "C" int mumpy_vit3_qkv_attn(const void* h, const void* w_qkv, const void*
   if (R <= 0 || !vit3_fused(C, H) || 3LL * R * C > 0x7fffffffLL || 3LL * R + 64 > 0x7fffffffLL ||
       !aligned16(h) || !aligned16(w_qkv) || !aligned16(b_qkv) || !aligned16(o) || h == o)
     return (int)cudaErrorInvalidValue;
-  static bool attr = false;  // once per process (one device)
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        vit3_qkv_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kVSmem);
-    if (err != cudaSuccess) return (int)err;
-    attr = true;
-  }
+  static SmemAttr attr;  // once per device
+  if (const int err = attr.raise(vit3_qkv_attn_kernel, kVSmem)) return err;
   // h (3R, C) and Wqkv (3C, C): boxes of 64 columns (K) x 64 rows
   CUtensorMap h_tmap, w_tmap;
   int err = tensor_map(&h_tmap, h, 3 * R, C, 64);

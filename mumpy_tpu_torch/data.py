@@ -1,7 +1,7 @@
 """Clips for the serving and training CLIs: the port's own copy of the parts
 of ``mumpy_tpu/configs/data_config.py``, ``mumpy_tpu/data/db.py`` and
 ``mumpy_tpu/data/dataset.py`` that read a test or a train split, with no
-LMDB index and no worker pool.
+LMDB index.
 
 * one clip per frame: a centred window of ``length_clip`` frame indices,
   clamped at the sequence edges;
@@ -18,7 +18,10 @@ LMDB index and no worker pool.
   ``multilateral_collate`` concatenates the streams along the batch and
   repeats the masks; :class:`DataLoader` shuffles from a seed, drops the last
   short batch and draws each sample's augmentation seed up front, as the
-  JAX package's loader does, so the two give the same batches.
+  JAX package's loader does, so the two give the same batches, assembled in
+  this process or in a persistent pool of worker processes;
+* in a data-parallel run each rank's loader assembles only its rows of the
+  global (stream-major) batch: the clips and streams those rows need.
 
 PIL is imported only when a frame is read.
 """
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import glob
+import itertools
 import os
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -36,7 +40,8 @@ from .augment import clip_augment, double_clip_augment
 
 __all__ = ["MEAN", "STD", "DataConfig", "davis_config", "youtubevos_config", "Clip",
            "read_sequences", "list_frames", "build_clips", "load_frame", "normalize",
-           "EvalClips", "binarize_mask", "TrainClips", "multilateral_collate", "DataLoader"]
+           "EvalClips", "binarize_mask", "TrainClips", "multilateral_collate", "assemble_rows",
+           "DataLoader"]
 
 # normalisation constants of the reference (``train.py:49-55``, ``test.py:23-24``)
 MEAN = (0.4776, 0.479, 0.4465)
@@ -207,56 +212,112 @@ class TrainClips:
         return len(self.clips)
 
     def load_clip(self, i: int, rng: Optional[np.random.Generator] = None,
-                  raw: bool = False):
+                  raw: bool = False, streams: Optional[Sequence[int]] = None):
         """(streams: [S] (T, H, W, 3), mask (H*W,) f32, seq_name,
         starting_frame); streams normalised f32, or uint8 with ``raw``.  A
         train split with ``augment`` applies one clip-consistent augmentation
-        drawn from ``rng`` to every frame of every stream and to the mask."""
+        drawn from ``rng`` to every frame of every stream and to the mask.
+        ``streams`` (default all) names the streams to read; the others are
+        None.  The augmentation's draws depend on the mask and the frame
+        size only, so a stream comes out the same whichever others are read."""
         cfg, clip = self.cfg, self.clips[i]
         res = cfg.input_res
-        streams = [[load_frame(os.path.join(root, clip.seq_name, f), res)
-                    for f in clip.frame_files] for root in self.stream_roots]
+        wanted = range(len(self.stream_roots)) if streams is None else sorted(set(streams))
+        frames = [[load_frame(os.path.join(self.stream_roots[j], clip.seq_name, f), res)
+                   for f in clip.frame_files] for j in wanted]
         centre = clip.frame_files[cfg.length_clip // 2]
         annot = load_annot(os.path.join(cfg.annotations, clip.seq_name,
                                         os.path.splitext(centre)[0] + ".png"), res)
         if self.split == "train" and cfg.augment and rng is not None:
             aug = clip_augment if cfg.single_augment else double_clip_augment
-            streams, annot = aug(streams, annot, rng)
-        stacked = [np.stack(f, axis=0) for f in streams]
-        if not raw:
-            stacked = [normalize(f) for f in stacked]
+            frames, annot = aug(frames, annot, rng)
+        stacked = [None] * len(self.stream_roots)
+        for j, f in zip(wanted, frames):
+            stacked[j] = np.stack(f, axis=0) if raw else normalize(np.stack(f, axis=0))
         return stacked, binarize_mask(annot).reshape(-1), clip.seq_name, clip.starting_frame
 
 
-def multilateral_collate(samples: Sequence) -> Dict[str, np.ndarray]:
+def multilateral_collate(samples: Sequence, rows: Optional[Sequence[int]] = None
+                         ) -> Dict[str, np.ndarray]:
     """Streams concatenated along the batch, masks repeated per stream:
-    images (S*B, T, H, W, 3) (uint8 kept), masks (S*B, H*W) f32."""
-    n_streams = len(samples[0][0])
-    images = np.concatenate(
-        [np.stack([s[0][j] for s in samples], axis=0) for j in range(n_streams)], axis=0)
+    images (S*B, T, H, W, 3) (uint8 kept), masks (S*B, H*W) f32.  Row r of
+    that stream-major batch is stream r // B of clip r % B; ``rows`` (default
+    all) keeps those rows, in their order."""
+    b = len(samples)
+    if rows is None:
+        rows = range(len(samples[0][0]) * b)
+    images = np.stack([samples[r % b][0][r // b] for r in rows], axis=0)
     if images.dtype != np.uint8:
         images = images.astype(np.float32)
-    masks = np.stack([s[1] for s in samples], axis=0)
-    masks = np.concatenate([masks] * n_streams, axis=0)
+    masks = np.stack([samples[r % b][1] for r in rows], axis=0)
     return {"image": images, "mask": masks.astype(np.float32)}
+
+
+def assemble_rows(ds: TrainClips, idx, seeds, rows: Optional[Sequence[int]] = None,
+                  raw: bool = False) -> Dict[str, np.ndarray]:
+    """The batch of clips ``idx`` (augmented from ``seeds``), or its
+    ``rows``: only the clips and streams those rows hold are read (the
+    others' samples are None)."""
+    b, n_streams = len(idx), len(ds.stream_roots)
+    rows = range(n_streams * b) if rows is None else rows
+    need: Dict[int, List[int]] = {}
+    for r in rows:
+        need.setdefault(r % b, []).append(r // b)
+    samples = [ds.load_clip(int(i), np.random.default_rng(int(s)), raw=raw, streams=need[c])
+               if c in need else None for c, (i, s) in enumerate(zip(idx, seeds))]
+    return multilateral_collate(samples, rows)
+
+
+_WORKER_DS: Optional[TrainClips] = None
+
+
+def _worker_init(ds: TrainClips) -> None:
+    global _WORKER_DS
+    _WORKER_DS = ds
+
+
+def _worker_assemble(args) -> Dict[str, np.ndarray]:
+    idx, seeds, rows = args
+    return assemble_rows(_WORKER_DS, idx, seeds, rows, raw=True)
 
 
 class DataLoader:
     """Seeded shuffling batches of a :class:`TrainClips`, the last short one
-    dropped (``drop_last``), assembled in this process.  Epoch e shuffles with
-    ``default_rng(seed + e)`` and draws every sample's augmentation seed from
-    it up front.  ``normalize_on_host=False`` yields uint8 frames, which the
-    trainer normalises on the device (4x fewer bytes to copy)."""
+    dropped (``drop_last``).  Epoch e shuffles with ``default_rng(seed + e)``
+    and draws every sample's augmentation seed from it up front, so the
+    batches are the same, bit for bit, for any worker count.
+
+    * ``num_workers`` 0 assembles each batch in this process; more keeps a
+      persistent pool of that many ``spawn`` worker processes (PIL and numpy
+      hold the interpreter lock for most of a decode, so threads would not
+      overlap them) with up to ``prefetch`` batches in flight, as the JAX
+      package's loader does.  Workers ship uint8 frames, normalised here when
+      ``normalize_on_host``; :meth:`close` stops the pool.
+    * ``normalize_on_host=False`` yields uint8 frames, which the trainer
+      normalises on the device (4x fewer bytes to copy).
+    * ``rank`` of ``world``: ``batch_size`` is the global clip count, and
+      each batch holds only this rank's rows of the global stream-major
+      batch (``parallel.row_shard``; ``world`` must divide its S x B rows).
+    """
 
     def __init__(self, dataset: TrainClips, batch_size: int, shuffle: bool, drop_last: bool,
-                 seed: int = 0, normalize_on_host: bool = True):
+                 seed: int = 0, normalize_on_host: bool = True, num_workers: int = 0,
+                 prefetch: int = 4, rank: int = 0, world: int = 1):
+        from .parallel.dist import row_shard  # here: the workers import this module, not torch
+
+        if world > 1 and not drop_last:
+            raise ValueError("a data-parallel loader drops the short last batch (drop_last)")
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.normalize_on_host = normalize_on_host
+        self.num_workers = num_workers
+        self.prefetch = max(1, prefetch)
+        self.rows = row_shard(len(dataset.stream_roots) * batch_size, world, rank)
         self._epoch = 0
+        self._pool = None
 
     def __len__(self) -> int:
         n = len(self.ds)
@@ -271,12 +332,45 @@ class DataLoader:
         return [order[s: s + bs] for s in range(0, end, bs)
                 if not (self.drop_last and len(order[s: s + bs]) < bs)]
 
+    def _rows(self, idx):
+        """This rank's rows of a batch of ``len(idx)`` clips (all of a
+        short last batch's, which only ``drop_last=False`` yields)."""
+        return self.rows if len(idx) == self.batch_size else None
+
+    def _pool_of_workers(self):
+        if self._pool is None:
+            import multiprocessing as mp
+
+            self._pool = mp.get_context("spawn").Pool(
+                self.num_workers, initializer=_worker_init, initargs=(self.ds,))
+        return self._pool
+
+    def close(self) -> None:
+        """Stop the worker pool (a later epoch starts a new one)."""
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         rng = np.random.default_rng(self.seed + self._epoch)
         self._epoch += 1
         batches = self._batch_indices(rng)
         seeds = [rng.integers(0, 2**63, size=len(idx)) for idx in batches]
-        for idx, sd in zip(batches, seeds):
-            yield multilateral_collate([
-                self.ds.load_clip(int(i), np.random.default_rng(int(s)),
-                                  raw=not self.normalize_on_host) for i, s in zip(idx, sd)])
+        if self.num_workers <= 0:
+            for idx, sd in zip(batches, seeds):
+                yield assemble_rows(self.ds, idx, sd, self._rows(idx),
+                                    raw=not self.normalize_on_host)
+            return
+        pool = self._pool_of_workers()
+        jobs = iter([(idx, sd, self._rows(idx)) for idx, sd in zip(batches, seeds)])
+        pending = [pool.apply_async(_worker_assemble, (job,))
+                   for job in itertools.islice(jobs, self.prefetch)]
+        while pending:
+            batch = pending.pop(0).get()
+            job = next(jobs, None)
+            if job is not None:
+                pending.append(pool.apply_async(_worker_assemble, (job,)))
+            if self.normalize_on_host:
+                batch["image"] = normalize(batch["image"])
+            yield batch

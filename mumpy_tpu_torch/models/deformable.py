@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cva import cva, cva_operands, cva_plain
-from .swin import KernelSite
+from .swin import KernelSite, RowShard
 
 __all__ = ["SwinDAttention", "CVAModule"]
 
@@ -88,9 +88,30 @@ class SwinDAttention(KernelSite):
         ref = torch.from_numpy(reference_points(ws, ws)).to(off)
         return off + ref
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, shard: RowShard = None):
+        """``shard``: this is one part of a split batch.  Partner window j of
+        the whole batch pairs with query window j % B1 of the whole batch
+        (the reference's ``repeat`` tiling), so with ratio > 1 a part's
+        partner windows need other parts' queries.  The part gathers every
+        part's queries and hands the call W of them, W = min(B1 of the batch,
+        its partner windows), starting at its first partner window's query,
+        so that partner window j of the part meets query j % W there as it
+        met its query in the whole batch; its partner windows are padded
+        with zeros to ratio * W.  The call then folds the same ratio rows in
+        the same order as the whole batch's call: the part's outputs are the
+        first ones, computed as the one-device call computes them."""
         b1, n, c = x1.shape
         ws, g = self.window, self.n_groups
+        ratio = x2.shape[0] // b1
+        part = shard is not None and shard.world > 1 and ratio > 1
+        if part:
+            everyone = shard.gather(x1)
+            r = x2.shape[0]
+            width = min(everyone.shape[0], r)
+            first = shard.rank * r  # the part's first partner window in the batch
+            x1 = everyone[(first + torch.arange(width, device=x1.device)) % everyone.shape[0]]
+            x2 = torch.cat([x2, x2.new_zeros((ratio * width - r, n, c))])
+            b1, mine = width, b1
         pos = self.sample_positions(x1).reshape(b1, g, n, 2).permute(1, 0, 2, 3).float()
         gy = ((pos[..., 0] + 1.0) * 0.5 * (ws - 1)).contiguous()  # absolute pixels
         gx = ((pos[..., 1] + 1.0) * 0.5 * (ws - 1)).contiguous()
@@ -99,6 +120,8 @@ class SwinDAttention(KernelSite):
         else:
             fn = cva if self.use_kernels else cva_plain
             out = fn(x1, x2, gy, gx, self.kernel_ops())
+        if part:
+            out = out[:mine]
         return out + self.proj_out.bias  # the bias follows the ratio fold
 
 
@@ -111,8 +134,8 @@ class CVAModule(nn.Module):
         super().__init__()
         self.crossattn = SwinDAttention(dim, num_heads, n_groups=3, window=window)
 
-    def forward(self, x1, x2, keep=None):
-        y = self.crossattn(x1, x2)
+    def forward(self, x1, x2, keep=None, shard: RowShard = None):
+        y = self.crossattn(x1, x2, shard)
         if keep is None:
             return x1 + y
         return x1 + keep.to(y.dtype)[:, None, None] * y

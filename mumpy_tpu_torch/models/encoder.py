@@ -27,7 +27,11 @@ Drop-path follows the JAX schedule: ``dpr = linspace(0, rate, sum(view-3
 depths))`` for all three views, ``dpr[base]`` for the cross block of a stage
 and ``dpr[base + i]`` for its plain block i, ``linspace(0, rate, layers)``
 for the ViT.  Every keep factor is drawn from
-the ``generator`` the forward is given.
+the ``generator`` the forward is given.  A forward on one part of a split
+batch (a data-parallel rank, a serving replica) is given a
+``swin.RowShard`` instead: the part's rows of the whole batch's keeps, and
+the other parts' query windows for the cross-view attention, whose ratio
+tiling reaches across clips (``deformable.py``).
 
 In the ``"attention"`` kernel set (the JAX package's ``MUMPY_FUSED_BLOCK=off
 MUMPY_PALLAS=on``; ``models/swin.py``) the encoder runs op by op on live
@@ -57,7 +61,8 @@ from ..ops.ln_mlp_train import ln_mlp_train, ln_mlp_train_plain, ln_mlp_weights
 from ..ops.window import partition_tokens, unpartition_tokens
 from .deformable import CVAModule
 from .swin import (KernelSite, Mlp, PatchMerging, SwinBlock, VitBlock, WindowAttention,
-                   clamp_window, drop_path_keep, mlp_tail_operands, scale_rows, window_attend)
+                   as_shard, clamp_window, drop_path_keep, mlp_tail_operands, scale_rows,
+                   window_attend)
 
 __all__ = ["PatchEmbed3D", "CrossSwinBlock", "ThreeViewStages",
            "merge_views_along_channel_axis", "GlobalVitBody", "MumpyEncoder"]
@@ -141,7 +146,7 @@ class CrossSwinBlock(KernelSite):
         if not self.last_view:
             gh2 = (x2.shape[1] // (h * w)) * h
             x2w = self.pre(partition_tokens(x2, gh2, w, win, 0))
-            x1i = x1i + self.cva(x1w, x2w).reshape(b1, l1, c1)
+            x1i = x1i + self.cva(x1w, x2w, shard=as_shard(generator)).reshape(b1, l1, c1)
         return (ln_mlp if self.use_kernels else ln_mlp_plain)(x1i, ops["mlp"]), out
 
     def train_forward(self, x1, x2, generator):
@@ -178,7 +183,8 @@ class CrossSwinBlock(KernelSite):
         if not self.last_view:
             gh2 = (x2.shape[1] // (h * w)) * h
             x2w = self.pre(partition_tokens(x2, gh2, w, win, 0))
-            cw = self.cva(x1w, x2w, drop_path_keep(b1 * nw, rate, generator, dev))
+            cw = self.cva(x1w, x2w, drop_path_keep(b1 * nw, rate, generator, dev),
+                          as_shard(generator))
             keep = drop_path_keep(b1, rate, generator, dev)
             x1i = x1i + keep.to(cw.dtype)[:, None, None] * cw.reshape(b1, l1, c1)
         keep = drop_path_keep(b1, rate, generator, dev).repeat_interleave(l1)

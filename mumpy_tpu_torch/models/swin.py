@@ -26,7 +26,8 @@ Each :class:`KernelSite` runs one of two kernel sets, chosen explicitly
   there.
 
 Stochastic depth is a per-sample keep factor drawn from an explicit
-``torch.Generator`` (:func:`drop_path_keep`).
+``torch.Generator`` (:func:`drop_path_keep`); a model that runs one part
+of a split batch takes a :class:`RowShard` in its place.
 """
 
 from __future__ import annotations
@@ -47,28 +48,65 @@ from ..ops.vit3 import vit3, vit3_operands, vit3_plain
 from ..ops.window import partition_tokens, shifted_window_mask, unpartition_tokens
 from ..ops.window_attention import window_attention, window_attention_plain
 
-__all__ = ["relative_position_index", "rel_pos_bias", "drop_path_keep", "KERNEL_SETS",
-           "KernelSite", "Mlp", "WindowAttention", "window_attend", "SwinBlock", "PatchMerging",
-           "VitBlock"]
+__all__ = ["relative_position_index", "rel_pos_bias", "RowShard", "as_shard", "drop_path_keep",
+           "KERNEL_SETS", "KernelSite", "Mlp", "WindowAttention", "window_attend", "SwinBlock",
+           "PatchMerging", "VitBlock"]
 
 KERNEL_SETS = ("blocks", "attention")
+
+
+class RowShard:
+    """One of ``world`` contiguous parts of a batch, part ``rank``: a rank of
+    a data-parallel step, or a replica of the split serving forward.  The
+    model takes it in place of its ``generator``.
+
+    * Drop-path: every draw is the whole batch's, ``n * world`` values from
+      the shared ``generator``, of which the part keeps its contiguous ``n``.
+      Each drawn tensor is row-major (a clip's keeps before the next clip's,
+      its windows or tokens inside), so the part's rows are one slice, and
+      the parts together take exactly the keeps of the whole batch, as the
+      JAX package's sharded step draws over the global batch.
+    * The cross-view attention: ``gather(x)`` returns every part's ``x``,
+      concatenated in part order (differentiable), for the one operation
+      whose rows reach across clips (``models/deformable.py``)."""
+
+    def __init__(self, world: int, rank: int, gather, generator: torch.Generator = None):
+        self.world, self.rank, self.gather, self.generator = world, rank, gather, generator
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+    def rand(self, n: int) -> torch.Tensor:
+        u = torch.rand(n * self.world, generator=self.generator, device=self.device)
+        return u[self.rank * n:(self.rank + 1) * n]
+
+
+def as_shard(generator):
+    """The :class:`RowShard` a model was handed as its ``generator``, or None
+    (a ``torch.Generator``, or nothing: the whole batch)."""
+    return generator if isinstance(generator, RowShard) else None
 
 
 def drop_path_keep(n: int, rate: float, generator, device) -> torch.Tensor:
     """(n,) f32 stochastic-depth keep factors, one per sample: 0 with
     probability ``rate``, else 1 / (1 - rate) (the JAX package's
     ``drop_path``, timm's ``DropPath``); all ones at rate 0.  Drawn on the
-    generator's device, so one seed gives the same draws on any path."""
+    generator's device, so one seed gives the same draws on any path; a
+    :class:`RowShard` gives its part's rows of the whole batch's draw."""
     if rate == 0.0:
         return torch.ones(n, device=device)
-    if generator is None:
+    shard = isinstance(generator, RowShard)
+    if (generator.generator if shard else generator) is None:
         raise ValueError(f"drop-path at rate {rate} needs a torch.Generator")
     keep = 1.0 - rate
-    u = torch.rand(n, generator=generator, device=generator.device)
+    if shard:
+        u = generator.rand(n)
+    else:
+        u = torch.rand(n, generator=generator, device=generator.device)
     return ((u < keep).float() / keep).to(device)
 
 
-@functools.lru_cache(maxsize=None)
 def relative_position_index(wh: int, ww: int) -> np.ndarray:
     """Static (wh*ww, wh*ww) index into the (2wh-1)(2ww-1) bias table."""
     coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"))

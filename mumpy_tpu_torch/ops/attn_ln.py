@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .counts import count_launch
 
 __all__ = ["attn_ln", "attn_ln_plain", "attn_ln_operands", "window_msa_plain"]
 
@@ -81,7 +82,7 @@ def attn_ln(x, ops):
     version; a CUDA tensor launches the kernel."""
     if x.device.type == "cpu":
         return attn_ln_plain(x, ops)
-    attn_ln.launches += 1
+    count_launch(attn_ln)
     return launch_attn_ln(x, ops)
 
 

@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .counts import count_launch
 from .ln_mlp_train import _operand
 
 __all__ = ["attn_ln_train", "attn_ln_train_plain", "attn_ln_weights"]
@@ -105,7 +106,7 @@ class _AttnLnTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dout):
-        attn_ln_train.backward_launches += 1
+        count_launch(attn_ln_train, "backward_launches")
         x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj, wq_t = ctx.saved_tensors
         grads = launch_attn_ln_train_bwd(x, mb, keep, ln_g, ln_b, w_qkv, b_qkv, w_proj,
                                          wq_t, ctx.heads, dy, dout)
@@ -209,7 +210,7 @@ def attn_ln_train(x, mb, p, keep):
     ``attn_ln_train.backward_launches`` the backward's."""
     if x.device.type == "cpu":
         return attn_ln_train_plain(x, mb, p, keep)
-    attn_ln_train.launches += 1
+    count_launch(attn_ln_train)
     return launch_attn_ln_train(x, mb, p, keep)
 
 

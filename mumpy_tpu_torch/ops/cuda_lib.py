@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
+_LIB_LOCK = threading.Lock()
 build_seconds = None  # wall time of the nvcc run, or 0.0 when the cache hit
 build_log = ""
 
@@ -126,19 +128,23 @@ def _build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call (once, whichever
+    thread calls first)."""
     global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(_build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        for name in _LONG_RESULTS:
-            getattr(handle, name).restype = ctypes.c_longlong
-        handle.mumpy_error_string.argtypes = [ctypes.c_int]
-        handle.mumpy_error_string.restype = ctypes.c_char_p
-        _lib = handle
+    if _lib is not None:
+        return _lib
+    with _LIB_LOCK:
+        if _lib is None:
+            handle = ctypes.CDLL(str(_build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            for name in _LONG_RESULTS:
+                getattr(handle, name).restype = ctypes.c_longlong
+            handle.mumpy_error_string.argtypes = [ctypes.c_int]
+            handle.mumpy_error_string.restype = ctypes.c_char_p
+            _lib = handle
     return _lib
 
 

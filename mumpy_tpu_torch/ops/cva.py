@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
+from .counts import count_launch
 from .grid_sample import _axis_weights
 
 __all__ = ["cva", "cva_plain", "cva_operands", "sample_plain"]
@@ -97,7 +98,7 @@ def cva(x1, x2, gy, gx, ops):
     takes the plain version; a CUDA tensor launches the kernel."""
     if x1.device.type == "cpu":
         return cva_plain(x1, x2, gy, gx, ops)
-    cva.launches += 1
+    count_launch(cva)
     return launch_cva(x1, x2, gy, gx, ops)
 
 

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .counts import count_launch
 
 __all__ = ["ln_mlp_train", "ln_mlp_train_plain", "ln_mlp_weights"]
 
@@ -85,7 +86,7 @@ class _LnMlpTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        ln_mlp_train.backward_launches += 1
+        count_launch(ln_mlp_train, "backward_launches")
         x, keep, ln_g, ln_b, w1, b1, w2 = ctx.saved_tensors
         return launch_ln_mlp_train_bwd(x, keep, ln_g, ln_b, w1, b1, w2, None, dy)
 
@@ -130,7 +131,7 @@ def ln_mlp_train(x, p, keep):
     ``ln_mlp_train.backward_launches`` the backward's."""
     if x.device.type == "cpu":
         return ln_mlp_train_plain(x, p, keep)
-    ln_mlp_train.launches += 1
+    count_launch(ln_mlp_train)
     return launch_ln_mlp_train(x, p, keep)
 
 

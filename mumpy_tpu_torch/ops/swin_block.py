@@ -30,6 +30,7 @@ import torch
 
 from . import cuda_lib
 from .attn_ln import attention_launches, attn_ln_operands, attn_ln_plain
+from .counts import count_launch
 from .ln_mlp import ln_mlp_operands, ln_mlp_plain, mlp_sequence
 
 __all__ = ["swin_block", "swin_block_plain", "swin_block_operands", "block_sequence"]
@@ -55,7 +56,7 @@ def swin_block(x, ops):
     takes the plain version; a CUDA tensor launches the kernel."""
     if x.device.type == "cpu":
         return swin_block_plain(x, ops)
-    swin_block.launches += 1
+    count_launch(swin_block)
     return launch_swin_block(x, ops)
 
 

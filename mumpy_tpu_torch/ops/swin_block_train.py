@@ -57,6 +57,7 @@ import torch
 
 from . import cuda_lib
 from .attn_ln_train import _attention, attn_bwd_from, attn_ln_train_plain, attn_recompute
+from .counts import count_launch
 from .ln_mlp_train import launch_ln_mlp_train_bwd, ln_mlp_train_plain
 
 __all__ = ["swin_block_train", "swin_block_train_plain", "swin_block_weights"]
@@ -104,7 +105,7 @@ class _SwinBlockTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        swin_block_train.backward_launches += 1
+        count_launch(swin_block_train, "backward_launches")
         x, mb, keep1, keep2, *rest = ctx.saved_tensors
         weights, transposed = rest[:12], rest[12:] or (None, None, None)  # f32 only
         grads = launch_swin_block_train_bwd(x, mb, keep1, keep2, *weights, *transposed,
@@ -179,7 +180,7 @@ def swin_block_train(x, mb, p, keep1, keep2):
     ``swin_block_train.backward_launches`` the backward's."""
     if x.device.type == "cpu":
         return swin_block_train_plain(x, mb, p, keep1, keep2)
-    swin_block_train.launches += 1
+    count_launch(swin_block_train)
     return launch_swin_block_train(x, mb, p, keep1, keep2)
 
 

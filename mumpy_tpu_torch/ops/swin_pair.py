@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
+from .counts import count_launch
 from .swin_block import block_sequence, swin_block_plain
 from .window import partition_tokens, unpartition_tokens
 
@@ -74,7 +75,7 @@ def swin_pair(x, ops):
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
     if x.device.type == "cpu":
         return swin_pair_plain(x, ops)
-    swin_pair.launches += 1
+    count_launch(swin_pair)
     return launch_swin_pair(x, ops)
 
 

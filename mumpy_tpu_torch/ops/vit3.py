@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .counts import count_launch
 from .ln_mlp import ln_mlp_operands, ln_mlp_plain
 
 __all__ = ["vit3", "vit3_plain", "vit3_operands"]
@@ -78,7 +79,7 @@ def vit3(x, ops):
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
     if x.device.type == "cpu":
         return vit3_plain(x, ops)
-    vit3.launches += 1
+    count_launch(vit3)
     return launch_vit3(x, ops)
 
 

@@ -44,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
+from .counts import count_launch
 
 __all__ = ["window_attention", "window_attention_plain", "launch_window_attention",
            "launch_window_attention_bwd"]
@@ -87,7 +88,7 @@ class _WindowAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        window_attention.backward_launches += 1
+        count_launch(window_attention, "backward_launches")
         qkv, mb = ctx.saved_tensors
         dqkv, dmb = launch_window_attention_bwd(qkv, mb, do, ctx.heads)
         return dqkv, dmb.to(mb.dtype), None
@@ -117,7 +118,7 @@ def window_attention(qkv, mb, heads):
     _check(qkv, mb, heads)
     if qkv.device.type == "cpu":
         return window_attention_plain(qkv, mb, heads)
-    window_attention.launches += 1
+    count_launch(window_attention)
     return launch_window_attention(qkv, mb, heads)
 
 

@@ -12,9 +12,13 @@ sigmoid at 0.5 and writes ``{frame:04d}_instance_00.png`` (0/255) under
 ``<results_dir>/<model_name>/masks_<dataset>/<seq>/``, which ``measure.py``
 scores unchanged.  Batches are padded to ``-batch_size`` at the tail.
 
-It serves on the first CUDA device, through the hand-written kernels, unless
-``-device cpu`` asks for the CPU (the kernels' plain versions); with
-``-device cuda`` and no visible card it exits with an error.  ``-kernel_set``
+It serves on the CUDA devices, through the hand-written kernels, unless
+``-device cpu`` asks for the CPU (the kernels' plain versions, one device);
+with ``-device cuda`` and no visible card it exits with an error.  As
+``test.py`` does, it splits each batch over the largest count of the visible
+cards that divides ``-batch_size`` (``parallel.serving_devices``; one replica
+and one host thread per card, ``utils.serving.SplitForward``);
+``CUDA_VISIBLE_DEVICES`` limits the cards.  ``-kernel_set``
 picks the kernels: ``blocks`` (default, the JAX package's default set) or
 ``attention`` (its ``MUMPY_FUSED_BLOCK=off MUMPY_PALLAS=on``: op by op, only
 the window-attention core through a kernel).
@@ -33,7 +37,8 @@ from .configs import multiswin_config, tiny_config
 from .data import EvalClips, davis_config, youtubevos_config
 from .models.mumpy import Mumpy
 from .models.swin import KERNEL_SETS
-from .utils.serving import make_serving_forward
+from .parallel.dist import serving_devices
+from .utils.serving import SplitForward, make_serving_forward
 from .train import checkpoint as ckpt_lib
 from .utils.weight_port import jax_init_state_dict
 
@@ -55,7 +60,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-batch_size", default=6, type=int)
     p.add_argument("-imsize", default=224, type=int)
     p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
-                   help="cuda: the first GPU, through the kernels (default); "
+                   help="cuda: the visible GPUs, through the kernels (default); "
                         "cpu: the kernels' plain versions")
     p.add_argument("-kernel_set", default="blocks", choices=KERNEL_SETS,
                    help="blocks: the whole-block kernels (default); attention: op by op, "
@@ -98,27 +103,40 @@ def main(argv=None) -> None:
 
     model_dir = os.path.join(args.results_dir, args.model_name)
     model = load_model(model_cfg, model_dir, args.test_epoch)
-    device = torch.device(args.device)
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
-    forward = make_serving_forward(model, device, dtype, kernel_set=args.kernel_set)
-    print(f"Serving on {device} in {dtype}, kernel set {args.kernel_set}")
-
     bs = max(1, args.batch_size)
+    if args.device == "cuda":  # as test.py:79-94 shards over its devices
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        devices = serving_devices(bs, cards)
+        if len(devices) > 1:
+            print(f"Serving data-parallel over {len(devices)} devices")
+        elif len(cards) > 1:
+            print(f"Serving on 1 of {len(cards)} devices "
+                  f"(batch {bs} has no multi-device divisor)")
+    else:
+        devices = [torch.device("cpu")]
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    forward = make_serving_forward(model, devices, dtype, kernel_set=args.kernel_set)
+    print(f"Serving on {', '.join(map(str, devices))} in {dtype}, kernel set {args.kernel_set}")
+
     out_root = os.path.join(model_dir, f"masks_{args.dataset}")
     from PIL import Image
 
-    for batch in EvalClips(data_cfg, args.eval_split).batches(bs):
-        imgs = batch["image"]
-        n = imgs.shape[0]
-        if n < bs:  # pad the tail batch: every call sees the serving batch shape
-            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], bs - n, axis=0)], axis=0)
-        probs = forward(torch.from_numpy(imgs)).cpu().numpy()  # (bs, H, W, 1)
-        for i in range(n):
-            mask = (probs[i, :, :, 0] > 0.5).astype(np.uint8) * 255
-            seq_dir = os.path.join(out_root, batch["seq_name"][i])
-            os.makedirs(seq_dir, exist_ok=True)
-            Image.fromarray(mask).save(
-                os.path.join(seq_dir, f"{batch['starting_frame'][i]:04d}_instance_00.png"))
+    try:
+        for batch in EvalClips(data_cfg, args.eval_split).batches(bs):
+            imgs = batch["image"]
+            n = imgs.shape[0]
+            if n < bs:  # pad the tail batch: every call sees the serving batch shape
+                imgs = np.concatenate([imgs, np.repeat(imgs[-1:], bs - n, axis=0)], axis=0)
+            probs = forward(torch.from_numpy(imgs)).cpu().numpy()  # (bs, H, W, 1)
+            for i in range(n):
+                mask = (probs[i, :, :, 0] > 0.5).astype(np.uint8) * 255
+                seq_dir = os.path.join(out_root, batch["seq_name"][i])
+                os.makedirs(seq_dir, exist_ok=True)
+                Image.fromarray(mask).save(
+                    os.path.join(seq_dir, f"{batch['starting_frame'][i]:04d}_instance_00.png"))
+    finally:
+        if isinstance(forward, SplitForward):
+            forward.close()
     print(f"Masks written to {out_root}")
 
 

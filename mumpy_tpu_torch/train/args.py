@@ -27,6 +27,9 @@ def get_parser() -> argparse.ArgumentParser:
                    help="yaml of the sequences of each split (default: every sub-directory "
                         "of -seq_dir, for every split)")
     p.add_argument("-imsize", default=224, type=int)
+    p.add_argument("-num_workers", default=4, type=int,
+                   help="worker processes that assemble the training batches (0: in this "
+                        "process); the batches are the same for any count")
     p.add_argument("--augment", dest="augment", action="store_true", default=True)
     p.add_argument("--no-augment", dest="augment", action="store_false")
     p.add_argument("--singleAugment", dest="single_augment", action="store_true", default=True)
@@ -68,8 +71,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("-pretrained", default=None,
                    help="torch checkpoint of the reference to warm-start from (by name)")
     p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
-                   help="cuda: the first GPU, through the kernels (default); "
-                        "cpu: the kernels' plain versions")
+                   help="cuda: the first GPU (under torchrun: cuda:LOCAL_RANK, NCCL), through "
+                        "the kernels (default); cpu: the kernels' plain versions (under "
+                        "torchrun: gloo)")
     p.add_argument("-kernel_set", default="blocks", choices=KERNEL_SETS,
                    help="blocks: the whole-block training kernels (default); attention: op "
                         "by op, only the window-attention core (and its backward) through a "

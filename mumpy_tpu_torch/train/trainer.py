@@ -20,6 +20,20 @@ and val steps and the reference's epoch loop.
 
 uint8 batches are normalised on the device.  Drop-path draws come from one
 ``torch.Generator`` on the model's device, seeded from ``TrainLoopConfig.seed``.
+
+Data parallel (``TrainState.dist`` from ``parallel.init_from_env`` under
+``torchrun``): each rank steps on its rows of the global batch; the
+drop-path keeps are the global batch's, each rank keeping its rows
+(``models.swin.RowShard``; the cross-view attention also reads the other
+ranks' query windows); ``train_step`` averages the gradients
+over the ranks between the backward and the optimizer step (the parameters
+are cast for the forward by ``functional_call``, which a DDP wrapper's
+forward and reducer would not see); the loss terms are averaged over the
+ranks when they are fetched (every ``print_every`` steps), the val metric
+before the best, patience and reload decisions, so every rank takes the
+same branch; only rank 0 writes checkpoints, ``metrics.jsonl`` and
+TensorBoard, and every rank waits for its writes at a barrier before it
+reads a checkpoint.
 """
 
 from __future__ import annotations
@@ -35,6 +49,9 @@ import torch
 from torch.func import functional_call
 
 from ..data import MEAN, STD
+from ..models.swin import RowShard
+from ..parallel.dist import (Dist, all_reduce_mean, broadcast_object, broadcast_tensors,
+                              gather_rows)
 from ..utils.serving import prepare_for_inference, release_inference_operands
 from . import checkpoint as ckpt_lib
 from .losses import total_loss
@@ -62,10 +79,13 @@ class TrainLoopConfig:
 
 
 class TrainState:
-    """The model (f32 master parameters), its optimizer and the step count."""
+    """The model (f32 master parameters), its optimizer, the step count and
+    the process's place in a data-parallel run (``dist``; default: one
+    process)."""
 
-    def __init__(self, model: torch.nn.Module, optimizer: Optimizer, step: int = 0):
-        self.model, self.optimizer, self.step = model, optimizer, step
+    def __init__(self, model: torch.nn.Module, optimizer: Optimizer, step: int = 0,
+                 dist: Dist = Dist()):
+        self.model, self.optimizer, self.step, self.dist = model, optimizer, step, dist
 
     @property
     def device(self) -> torch.device:
@@ -80,6 +100,23 @@ class TrainState:
         self.optimizer.load_state_dict(sd["optimizer"])
         self.step = int(sd["step"])
 
+    def broadcast(self) -> None:
+        """Rank 0's parameters, buffers, optimizer state and counts on every
+        rank (after a load).  Raises where a rank's state is laid out
+        otherwise than rank 0's."""
+        opt = self.optimizer
+        named = sorted(self.model.state_dict().items())
+        named += sorted((f"acc.{n}", t) for n, t in opt.acc.items())
+        named += sorted((f"buffers.{n}.{k}", t) for n, b in opt.buffers.items()
+                        for k, t in b.items())
+        layout = [(n, tuple(t.shape), str(t.dtype)) for n, t in named]
+        if broadcast_object(layout, self.dist) != layout:
+            raise RuntimeError(f"rank {self.dist.rank}'s training state differs in layout "
+                               "from rank 0's")
+        broadcast_tensors([t for _, t in named], self.dist)
+        self.step, opt.count, opt.mini_step = broadcast_object(
+            (self.step, opt.count, opt.mini_step), self.dist)
+
 
 class _EvalForward(torch.nn.Module):
     """Eval forward that first builds the serving kernels' operands from the
@@ -89,9 +126,9 @@ class _EvalForward(torch.nn.Module):
         super().__init__()
         self.model = model
 
-    def forward(self, clip):
+    def forward(self, clip, generator=None):
         prepare_for_inference(self.model)
-        return self.model(clip)
+        return self.model(clip, generator)
 
 
 def _device_batch(batch: dict, device, compute_dtype):
@@ -114,7 +151,7 @@ def _loss_for_batch(model, batch, generator, train: bool, compute_dtype=None):
         logits = functional_call(model, params, (image,), {"generator": generator})
     else:
         logits = functional_call(_EvalForward(model), {f"model.{n}": p for n, p in params.items()},
-                                 (image,))
+                                 (image,), {"generator": generator})
         release_inference_operands(model)
     logits = logits.float()
     b = logits.shape[0]
@@ -122,15 +159,27 @@ def _loss_for_batch(model, batch, generator, train: bool, compute_dtype=None):
     return loss, (iou, foc, logits)
 
 
+def _part_of_batch(dist: Dist, generator):
+    """What the model draws from and gathers through: under data
+    parallelism this rank's part of the global batch, else ``generator``."""
+    if dist.world == 1:
+        return generator
+    return RowShard(dist.world, dist.rank, lambda x: gather_rows(x, dist), generator)
+
+
 def train_step(state: TrainState, batch: dict, generator: torch.Generator,
                compute_dtype=None) -> dict:
     """One optimization step on ``batch`` ({"image": (kB, T, H, W, 3), "mask":
-    (kB, H*W)}); returns the loss terms and the sigmoid predictions, on the
-    device."""
+    (kB, H*W)}: under data parallelism this rank's rows of the global
+    batch); returns this batch's loss terms and sigmoid predictions, on the
+    device.  The gradients are averaged over the ranks before the update."""
+    generator = _part_of_batch(state.dist, generator)
     state.optimizer.zero_grad()
     loss, (iou, foc, logits) = _loss_for_batch(state.model, batch, generator, True,
                                                compute_dtype)
     loss.backward()
+    all_reduce_mean([p.grad for p in state.model.parameters() if p.grad is not None],
+                    state.dist)
     state.optimizer.step()
     state.step += 1
     return {"total": loss.detach(), "iou": iou.detach(), "focal": foc.detach(),
@@ -139,7 +188,8 @@ def train_step(state: TrainState, batch: dict, generator: torch.Generator,
 
 @torch.no_grad()
 def val_step(state: TrainState, batch: dict, compute_dtype=None) -> dict:
-    loss, (iou, foc, _) = _loss_for_batch(state.model, batch, None, False, compute_dtype)
+    loss, (iou, foc, _) = _loss_for_batch(state.model, batch, _part_of_batch(state.dist, None),
+                                          False, compute_dtype)
     return {"total": loss, "iou": iou, "focal": foc}
 
 
@@ -194,15 +244,40 @@ class MetricsWriter:
             self.tb.close()
 
 
+class _NoWriter:
+    """The writer of a rank other than 0: it writes nothing."""
+
+    tb = None
+
+    def write(self, *args, **kwargs):
+        pass
+
+    def write_image_grid(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
 def train_loop(state: TrainState, loaders: dict, loop_cfg: TrainLoopConfig,
                max_steps_per_epoch: Optional[int] = None) -> TrainState:
     """The reference's epoch loop.  ``loaders`` maps "train" / "val" to a
-    callable returning an iterator of host batches."""
+    callable returning an iterator of host batches (this rank's rows)."""
     cdtype = torch.bfloat16 if loop_cfg.compute_dtype == "bf16" else None
     model_dir = os.path.join(loop_cfg.results_dir, loop_cfg.model_name)
-    writer = MetricsWriter(model_dir)
+    dist = getattr(state, "dist", Dist())  # a state with no dist trains in one process
+    writer = MetricsWriter(model_dir) if dist.is_main else _NoWriter()
+    say = print if dist.is_main else (lambda *args, **kwargs: None)
     generator = torch.Generator(device=state.device).manual_seed(loop_cfg.seed)
     saver = ckpt_lib.AsyncSaver()
+
+    def save(e):  # every rank holds the same state: rank 0 writes it
+        if dist.is_main:
+            saver.save(model_dir, state.state_dict(), e, extra={"best_val_loss": best_val_loss})
+
+    def sync():  # rank 0's writes done, on every rank: any rank may read them
+        saver.wait()
+        dist.barrier()
 
     best_val_loss = loop_cfg.best_val_loss
     acc_patience = 0
@@ -219,10 +294,16 @@ def train_loop(state: TrainState, loaders: dict, loop_cfg: TrainLoopConfig,
             pending = []  # (step, {name: device scalar}), fetched every print_every
 
             def flush():
+                """Fetch the pending loss terms, averaged over the ranks (one
+                collective for the lot)."""
                 if not pending:
                     return
-                for ts, sc in pending:
-                    sc = {k: float(v) for k, v in sc.items()}
+                names = list(pending[0][1])
+                terms = torch.stack([torch.stack([torch.as_tensor(sc[k]).float() for k in names])
+                                     for _, sc in pending])
+                all_reduce_mean([terms], dist)
+                for (ts, _), row in zip(pending, terms.tolist()):
+                    sc = dict(zip(names, row))
                     if split == "train":
                         writer.write(ts, "train", sc)
                         writer.write(ts, "lr", state.optimizer.lrs(ts))
@@ -234,7 +315,7 @@ def train_loop(state: TrainState, loaders: dict, loop_cfg: TrainLoopConfig,
                     if max_steps_per_epoch and i >= max_steps_per_epoch:
                         break
                     if split == "train":
-                        epoch_clips += int(batch["image"].shape[0])
+                        epoch_clips += int(batch["image"].shape[0]) * dist.world
                         m = train_step(state, batch, generator, cdtype)
                         preds = m.pop("preds", None)
                         pending.append((tstep, m))
@@ -250,14 +331,14 @@ def train_loop(state: TrainState, loaders: dict, loop_cfg: TrainLoopConfig,
                         pending.append((i, val_step(state, batch, cdtype)))
                     if (i + 1) % loop_cfg.print_every == 0:
                         flush()
-                        print(f"epoch {e} {split} iter {i}: total "
+                        say(f"epoch {e} {split} iter {i}: total "
                               f"{np.mean(epoch_losses[split]):.4f} ({time.time() - t0:.1f}s)",
                               flush=True)
             finally:
                 flush()
             if not epoch_losses[split]:
                 if split == "val":
-                    print(f"Epoch {e}: val loader produced no batches — skipping "
+                    say(f"Epoch {e}: val loader produced no batches — skipping "
                           "best/patience bookkeeping this epoch")
                 continue
             if split == "val":
@@ -271,10 +352,10 @@ def train_loop(state: TrainState, loaders: dict, loop_cfg: TrainLoopConfig,
             else:
                 split_mean = float(np.mean(epoch_losses[split]))
             writer.write(e, f"epoch_{split}", {"total": split_mean})
-            print(f"Epoch {e}: total {split_mean:.4f} ({split})", flush=True)
+            say(f"Epoch {e}: total {split_mean:.4f} ({split})", flush=True)
             if split == "train" and epoch_clips:
                 dt = time.time() - te0
-                print(f"Epoch {e}: train wall {dt:.1f}s, "
+                say(f"Epoch {e}: train wall {dt:.1f}s, "
                       f"{epoch_clips / dt:.1f} stream-clips/s end-to-end", flush=True)
                 writer.write(e, "epoch_wall", {"seconds": dt, "clips_per_s": epoch_clips / dt})
 
@@ -282,14 +363,14 @@ def train_loop(state: TrainState, loaders: dict, loop_cfg: TrainLoopConfig,
             continue
         if mt < best_val_loss - loop_cfg.min_delta:
             best_val_loss = mt
-            saver.save(model_dir, state.state_dict(), e, extra={"best_val_loss": best_val_loss})
+            save(e)
             acc_patience = 0
         else:
             acc_patience += 1
             if (acc_patience > loop_cfg.patience and loop_cfg.patience_reload
                     and not reload_fired):
                 reload_fired = True
-                saver.wait()  # the best save may still be writing
+                sync()  # rank 0's best save may still be writing
                 restored = ckpt_lib.load_latest(model_dir)
                 if restored is not None:
                     state.load_state_dict(restored)
@@ -297,8 +378,8 @@ def train_loop(state: TrainState, loaders: dict, loop_cfg: TrainLoopConfig,
                 best_val_loss = 1000.0
                 mt_val = -1.0
         if e == loop_cfg.max_epoch // 2 - 1 or e == loop_cfg.max_epoch - 1:
-            saver.save(model_dir, state.state_dict(), e, extra={"best_val_loss": best_val_loss})
+            save(e)
 
-    saver.wait()
+    sync()
     writer.close()
     return state

@@ -1,11 +1,15 @@
 """Seeded inputs and weights shared by the kernel tests (numpy draws, JAX
 layout (in, out)), their conversion to the port's kernel operands, the card
-tests' fixture and checks, and a model of the kernels' C entry points for the
-CPU launch tests.  Imports no JAX, so the card-only tests can use it where
-JAX is absent."""
+tests' fixture and checks, a model of the kernels' C entry points for the
+CPU launch tests, and the spawning of a data-parallel run's ranks on one
+host (the CPU tests' gloo ranks, ``chip_smoke.py``'s phase f).  Imports no
+JAX, so the card-only tests can use it where JAX is absent."""
 
 import ctypes
 import math
+import os
+import socket
+import time
 
 import numpy as np
 import pytest
@@ -269,6 +273,44 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+# ---- ranks of a data-parallel run, spawned on this host ----
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a process group's rendezvous."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def rank_env(rank: int, world: int, port: int, local_rank: int = None) -> None:
+    """Set the variables ``torchrun`` gives a rank (``parallel.init_from_env``
+    reads them): a rendezvous on localhost ``port``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port),
+                      LOCAL_RANK=str(rank if local_rank is None else local_rank))
+
+
+def spawn_ranks(fn, world: int, args=(), timeout: float = 120.0) -> None:
+    """Run ``fn(rank, *args)`` in ``world`` spawned processes and join them
+    within ``timeout`` seconds.  A rank that raises or exits non-zero raises
+    here (the others are stopped); so does a run past the timeout, which
+    kills every rank first."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.start_processes(fn, args=tuple(args), nprocs=world, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{world} ranks still running after {timeout:.0f} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(timeout=10)
 
 
 # ---- the card tests' fixture and check ----
