@@ -191,6 +191,35 @@ g. the bf16 training epoch on synthetic 224^2 clips with the loader's
    identical (by hash), and for each the step ms of an epoch and the
    device-idle share (two steps under ``torch.profiler``).
 
+The baseline ablation model and the configurations, after phase g (h, i,
+j; ``python3 chip_smoke.py --phases h,i,j`` runs any of them alone after
+phases 1-2):
+
+h. the single-view Swin baseline (``models/baseline.py``, ``BaselineConfig()``:
+   Swin-B at 224^2, full width) on seeded weights: every distinct #1
+   instance of its batch-2 forward against ``swin_block_plain`` by phase 3's
+   bounds and planted faults; the f32 logits kernel vs plain within
+   1e-3 * max(1, max|logit|), bf16 by phase 4's 2x rule; launches per
+   forward ``swin_block`` 24 and every other kernel 0; bf16 frames/s at
+   batch 32 of both paths (plain, kernel, kernel, plain; CUDA events) with
+   peak memory; #1's ms per forward (its instances alone) beside the
+   forward's; ``utils.profiling.model_flops`` per forward, the achieved
+   TFLOP/s and its share of 989 (printed for the flagship in phase 5 too);
+i. its training at 12 clips (SGD at 1e-3, drop-path 0.1): one kernel-path step
+   against the plain path by phase 8's rules; launches per ``train_step``
+   ``swin_block_train`` 24 + 24 and every other kernel 0; four steps in f32
+   and in bf16 with the loss finite and falling, step ms of both paths and
+   peak memory;
+j. at ``mid_config`` (the flagship's widths and depths at 64^2):
+   ``drop_rate = attn_drop_rate = 0.1`` (eval logits and launches as at rate
+   0; a ``train_step`` launches no kernel; four bf16 steps falling);
+   ``remat_policy="dots"`` against ``"full"`` and no remat on the plain
+   path (f32 gradients by phase 8's rule against the f64 step without
+   remat; peak memory of each); ``cva_kind="window"`` (f32 logits kernel vs
+   plain by phase 4's rule, bf16 by the 2x rule, launches as the deformable
+   kind's with ``cva`` 0, two replicas on ``cuda:0`` within 1e-5 of one
+   device).
+
 The weights are drawn with ``random_state_dict(..., fan_in=True)``: matrices
 at 1/sqrt(fan-in) and relative-position tables at unit scale, so every score,
 mask+bias term and branch is of order one at every width, and a kernel that
@@ -205,6 +234,7 @@ The second-to-last line of output is a JSON object with one entry per kernel
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -867,98 +897,13 @@ def training_phases(cfg, dev, smi, rng):
         return None
 
     # ---- 8. one training step: kernel path vs plain path ----
-    def step_grads(use_kernels, dtype, kernel_set):
-        model.load_state_dict(init)
-        set_kernel_path(model, use_kernels, kernel_set)
-        model.zero_grad(set_to_none=True)
-        loss, _ = _loss_for_batch(model, batch, generator(SEED + 1), True, dtype)
-        loss.backward()
-        torch.cuda.synchronize()
-        return loss.item(), {n: p.grad.detach().float().clone()
-                             for n, p in model.named_parameters()}
-
-    def rel_l2(a, b, scale):
-        return (a.double() - b.double()).norm().item() / max(scale, 1e-30)
-
-    def all_l2(ga, gb):
-        num = sum((ga[k].double() - gb[k].double()).pow(2).sum() for k in gb)
-        return (num / sum(gb[k].double().pow(2).sum() for k in gb)).sqrt().item()
-
-    def check_step(kernel_set):
-        """Phase 8 (and phase c for the attention set): one step of the
-        kernel path against the plain path of ``kernel_set``."""
-        tag = f"[train-step {kernel_set}]"
-        loss_k, grads_k = step_grads(True, None, kernel_set)
-        loss_p, grads_p = step_grads(False, None, kernel_set)
-        # the reference: the plain path in f64
-        _, grads_64 = step_grads(False, torch.float64, kernel_set)
-        # Each path's f32 gradient is held against the f64 one by relative L2
-        # of its own norm, except a gradient that is zero to rounding: below
-        # ZERO_GRAD of its share of the whole gradient (the RMS over all
-        # parameters times sqrt(size)), held to that share.  The CVA's key
-        # biases are such (softmax ignores a shift shared by all keys): 2e-8
-        # to 6e-8 of their share at tiny_config on the CPU, where the smallest
-        # other gradient is 5.5e-3 of its share.  The kernel path's error must
-        # be within GRAD_TOL or twice the plain path's: a tensor summed with
-        # heavy cancellation (a relative-position table deep in the net) is
-        # that far off on any f32 path.
-        rms_all = (sum(g.double().pow(2).sum() for g in grads_64.values())
-                   / sum(g.numel() for g in grads_64.values())).sqrt().item()
-        err_k, err_p, floored = {}, {}, {}
-        for k, g in grads_64.items():
-            own, share = g.double().norm().item(), rms_all * g.numel() ** 0.5
-            if own < ZERO_GRAD * share:
-                floored[k] = (rel_l2(grads_k[k], g, own), rel_l2(grads_p[k], g, own))
-                own = share
-            err_k[k], err_p[k] = rel_l2(grads_k[k], g, own), rel_l2(grads_p[k], g, own)
-        over = {k: e for k, e in err_k.items() if e > max(GRAD_TOL, 2 * err_p[k])}
-        wk, wp = max(err_k, key=err_k.get), max(err_p, key=err_p.get)
-        wr = max(err_k, key=lambda k: err_k[k] / max(err_p[k], 1e-30))
-        loss_err = abs(loss_k - loss_p) / abs(loss_p)
-        log(f"{tag} f32 loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel err "
-            f"{loss_err:.3g}); gradients vs the f64 plain path, rel L2 per tensor: kernel "
-            f"path max {err_k[wk]:.3g} ({wk}, plain {err_p[wk]:.3g}), median "
-            f"{float(np.median(list(err_k.values()))):.3g}; plain path max {err_p[wp]:.3g} "
-            f"({wp}), median {float(np.median(list(err_p.values()))):.3g}; largest kernel / "
-            f"plain ratio {err_k[wr] / max(err_p[wr], 1e-30):.3g} ({wr}, {err_k[wr]:.3g}); "
-            f"{sum(2 * e > GRAD_TOL for e in err_p.values())} tensors with plain error over "
-            f"{GRAD_TOL / 2:g}; over the bound: {over or 'none'} ({len(err_k)} tensors)")
-        log(f"{tag} {len(floored)} tensors zero to rounding, held to their share (kernel, "
-            f"plain errors against their own norm: "
-            f"{', '.join(f'{k} {a:.3g}, {b:.3g}' for k, (a, b) in floored.items())})")
-        del grads_k, grads_64
-        _, g16k = step_grads(True, torch.bfloat16, kernel_set)
-        e16k = all_l2(g16k, grads_p)
-        del g16k
-        _, g16p = step_grads(False, torch.bfloat16, kernel_set)
-        e16p = all_l2(g16p, grads_p)
-        del g16p, grads_p
-        log(f"{tag} bf16 gradients vs f32 plain, all parameters: kernel path rel L2 "
-            f"{e16k:.4g}, plain path {e16p:.4g}")
-        if loss_err > LOSS_TOL or over or not e16k <= 2 * e16p:
-            log(f"{tag} FAILED")
-            return False
-        return True
-
+    check_step = functools.partial(check_train_step, model, init, batch, generator)
     if not check_step("blocks"):
         return None
 
     # ---- 9. launch counts of one train_step (the main path) ----
-    def step_launches(kernel_set):
-        """Launches (forward, backward) of one kernel-path ``train_step``."""
-        model.load_state_dict(init)
-        set_kernel_path(model, True, kernel_set)
-        state = TrainState(model, Optimizer(model.named_parameters(), OptimConfig(),
-                                            iter_max=100))
-        for k in all_kernels:
-            k.launches = 0
-            if hasattr(k, "backward_launches"):
-                k.backward_launches = 0
-        train_step(state, batch, generator(SEED + 2))
-        torch.cuda.synchronize()
-        return {k.__name__: (k.launches, getattr(k, "backward_launches", 0))
-                for k in all_kernels}
-
+    step_launches = functools.partial(train_launches, model, init, batch, generator,
+                                      all_kernels)
     counts = step_launches("blocks")
     log(f"[train-main] launches per train_step (forward, backward): {counts}")
     if counts != {**dict.fromkeys(counts, (0, 0)), **EXPECTED_TRAIN_LAUNCHES}:
@@ -1034,7 +979,7 @@ def training_phases(cfg, dev, smi, rng):
     if not run_steps("attention"):
         return None
     attn_step = attention_step_times(model, init, batch, generator(SEED + 4), smi)
-    del model
+    del model, check_step, step_launches
     torch.cuda.empty_cache()
 
     # ---- 11. the train CLI, then serve on its weights, in f32 and bf16 ----
@@ -1078,6 +1023,109 @@ def training_phases(cfg, dev, smi, rng):
              "library_ms": None}
             for name in train_kernels], {**attn_step,
                                          "step_launches": attn_counts["window_attention"]}
+
+
+# ---- phases 8 and 9 (and c, i): one training step, its launches ----
+
+def step_grads(model, init, batch, generator, use_kernels, dtype, kernel_set):
+    """Loss and f32 gradients of one step from ``init`` on ``batch``."""
+    from mumpy_tpu_torch.train.trainer import _loss_for_batch
+    from mumpy_tpu_torch.utils.serving import set_kernel_path
+
+    model.load_state_dict(init)
+    set_kernel_path(model, use_kernels, kernel_set)
+    model.zero_grad(set_to_none=True)
+    loss, _ = _loss_for_batch(model, batch, generator(SEED + 1), True, dtype)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {n: p.grad.detach().float().clone()
+                         for n, p in model.named_parameters()}
+
+def rel_l2(a, b, scale):
+    return (a.double() - b.double()).norm().item() / max(scale, 1e-30)
+
+def all_l2(ga, gb):
+    num = sum((ga[k].double() - gb[k].double()).pow(2).sum() for k in gb)
+    return (num / sum(gb[k].double().pow(2).sum() for k in gb)).sqrt().item()
+
+def check_train_step(model, init, batch, generator, kernel_set, tag=None):
+    """Phase 8 (and phases c and i): one step of the kernel path against the
+    plain path of ``kernel_set``, from ``init`` on ``batch`` with the keeps
+    of ``generator(SEED + 1)``."""
+    tag = tag or f"[train-step {kernel_set}]"
+    run = functools.partial(step_grads, model, init, batch, generator)
+    loss_k, grads_k = run(True, None, kernel_set)
+    loss_p, grads_p = run(False, None, kernel_set)
+    # the reference: the plain path in f64
+    _, grads_64 = run(False, torch.float64, kernel_set)
+    # Each path's f32 gradient is held against the f64 one by relative L2
+    # of its own norm, except a gradient that is zero to rounding: below
+    # ZERO_GRAD of its share of the whole gradient (the RMS over all
+    # parameters times sqrt(size)), held to that share.  The CVA's key
+    # biases are such (softmax ignores a shift shared by all keys): 2e-8
+    # to 6e-8 of their share at tiny_config on the CPU, where the smallest
+    # other gradient is 5.5e-3 of its share.  The kernel path's error must
+    # be within GRAD_TOL or twice the plain path's: a tensor summed with
+    # heavy cancellation (a relative-position table deep in the net) is
+    # that far off on any f32 path.
+    rms_all = (sum(g.double().pow(2).sum() for g in grads_64.values())
+               / sum(g.numel() for g in grads_64.values())).sqrt().item()
+    err_k, err_p, floored = {}, {}, {}
+    for k, g in grads_64.items():
+        own, share = g.double().norm().item(), rms_all * g.numel() ** 0.5
+        if own < ZERO_GRAD * share:
+            floored[k] = (rel_l2(grads_k[k], g, own), rel_l2(grads_p[k], g, own))
+            own = share
+        err_k[k], err_p[k] = rel_l2(grads_k[k], g, own), rel_l2(grads_p[k], g, own)
+    over = {k: e for k, e in err_k.items() if e > max(GRAD_TOL, 2 * err_p[k])}
+    wk, wp = max(err_k, key=err_k.get), max(err_p, key=err_p.get)
+    wr = max(err_k, key=lambda k: err_k[k] / max(err_p[k], 1e-30))
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"{tag} f32 loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel err "
+        f"{loss_err:.3g}); gradients vs the f64 plain path, rel L2 per tensor: kernel "
+        f"path max {err_k[wk]:.3g} ({wk}, plain {err_p[wk]:.3g}), median "
+        f"{float(np.median(list(err_k.values()))):.3g}; plain path max {err_p[wp]:.3g} "
+        f"({wp}), median {float(np.median(list(err_p.values()))):.3g}; largest kernel / "
+        f"plain ratio {err_k[wr] / max(err_p[wr], 1e-30):.3g} ({wr}, {err_k[wr]:.3g}); "
+        f"{sum(2 * e > GRAD_TOL for e in err_p.values())} tensors with plain error over "
+        f"{GRAD_TOL / 2:g}; over the bound: {over or 'none'} ({len(err_k)} tensors)")
+    log(f"{tag} {len(floored)} tensors zero to rounding, held to their share (kernel, "
+        f"plain errors against their own norm: "
+        f"{', '.join(f'{k} {a:.3g}, {b:.3g}' for k, (a, b) in floored.items())})")
+    del grads_k, grads_64
+    _, g16k = run(True, torch.bfloat16, kernel_set)
+    e16k = all_l2(g16k, grads_p)
+    del g16k
+    _, g16p = run(False, torch.bfloat16, kernel_set)
+    e16p = all_l2(g16p, grads_p)
+    del g16p, grads_p
+    log(f"{tag} bf16 gradients vs f32 plain, all parameters: kernel path rel L2 "
+        f"{e16k:.4g}, plain path {e16p:.4g}")
+    if loss_err > LOSS_TOL or over or not e16k <= 2 * e16p:
+        log(f"{tag} FAILED")
+        return False
+    return True
+
+
+
+def train_launches(model, init, batch, generator, all_kernels, kernel_set):
+    """Launches (forward, backward) of one kernel-path ``train_step``."""
+    from mumpy_tpu_torch.train.optim import OptimConfig, Optimizer
+    from mumpy_tpu_torch.train.trainer import TrainState, train_step
+    from mumpy_tpu_torch.utils.serving import set_kernel_path
+
+    model.load_state_dict(init)
+    set_kernel_path(model, True, kernel_set)
+    state = TrainState(model, Optimizer(model.named_parameters(), OptimConfig(),
+                                        iter_max=100))
+    for k in all_kernels:
+        k.launches = 0
+        if hasattr(k, "backward_launches"):
+            k.backward_launches = 0
+    train_step(state, batch, generator(SEED + 2))
+    torch.cuda.synchronize()
+    return {k.__name__: (k.launches, getattr(k, "backward_launches", 0))
+            for k in all_kernels}
 
 
 # ---- the "attention" kernel set: the window-attention kernel (#7) ----
@@ -2196,6 +2244,283 @@ def write_synthetic_clips(root, rng, size, seqs=SYNTH_SEQS, frames=SYNTH_FRAMES)
             Image.fromarray(m).save(root / "annot" / name / f"{i:05d}.png")
 
 
+# ---- h-j: the baseline ablation model and the configurations ----
+
+BASELINE_LAUNCHES = {"swin_block": 24}  # per forward: the 24 Swin-B blocks, one by one
+BASELINE_TRAIN_LAUNCHES = {"swin_block_train": (24, 24)}  # per train_step
+CONFIG_RATE = 0.1  # phase j's dropout rates
+BASELINE_LR = 1e-3  # phase i's SGD rate, every group
+
+
+def baseline_model(dev):
+    """The baseline (``BaselineConfig()``: Swin-B at 224^2) on phase 3's seeded
+    weights rule."""
+    from mumpy_tpu_torch.models.baseline import BaselineConfig, BaselineModel
+    from mumpy_tpu_torch.utils.weight_port import random_state_dict
+
+    model = BaselineModel(BaselineConfig())
+    model.load_state_dict(random_state_dict(model, SEED, fan_in=True))
+    return model.to(dev)
+
+
+def flops_line(label, flops, ms, smi):
+    tflops = flops / (ms / 1e3) / 1e12
+    return (f"[flops] {label}: {flops / 1e12:.3f} TFLOP per bf16 batch-32 forward (model_flops, "
+            f"plain path), {ms:.1f} ms on the kernel path: {tflops:.1f} TFLOP/s, "
+            f"{100 * tflops * 1e12 / PEAK_FLOPS:.1f}% of {PEAK_FLOPS / 1e12:.0f} ({smi})")
+
+
+def baseline_serving_phase(dev, smi, rng, kernels):
+    """Phase h.  Returns False on a failure."""
+    from mumpy_tpu_torch.ops import swin_block
+    from mumpy_tpu_torch.utils.profiling import model_flops
+    from mumpy_tpu_torch.utils.serving import make_serving_forward
+
+    model = baseline_model(dev)
+    size = model.cfg.image_size
+    clip2 = torch.from_numpy(rng.standard_normal((2, 3, size, size, 3), dtype=np.float32))
+    with Capture() as cap:
+        make_serving_forward(model, dev, torch.float32, use_kernels=False)(clip2)
+    names = sorted({key[0] for key in cap.instances})
+    ok = names == ["swin_block"] and hold_instances(cap, {"swin_block": 0.0},
+                                                    "[baseline-kernel]")
+    log(f"[baseline] {len(cap.instances)} distinct instances of {names} in the batch-2 forward")
+    del cap
+    _, launches, a = serve_once(model, dev, clip2, torch.float32, True, "blocks", kernels)
+    _, plain_counts, b = serve_once(model, dev, clip2, torch.float32, False, "blocks", kernels)
+    err, scale = rel_err(a, b)
+    good = (launches == {**dict.fromkeys(launches, 0), **BASELINE_LAUNCHES}
+            and not any(plain_counts.values()) and err <= LOGIT_TOL * scale
+            and bool(torch.isfinite(a).all()) and tuple(a.shape) == (2, size, size, 1))
+    log(f"[baseline] launches per forward: {launches}; f32 logits kernel vs plain: max err "
+        f"{err:.3g} (scale {scale:.3g}, bound {LOGIT_TOL:g} x scale) {'ok' if good else 'FAIL'}")
+    err16 = {uk: rel_err(serve_once(model, dev, clip2, torch.bfloat16, uk, "blocks",
+                                    kernels)[2], b)[0] for uk in (True, False)}
+    good16 = err16[True] <= 2 * err16[False]
+    log(f"[baseline] bf16 logits vs f32: kernel path max err {err16[True]:.3g}, plain path "
+        f"{err16[False]:.3g} {'ok' if good16 else 'FAIL'}")
+    ok &= good and good16
+
+    clip32 = torch.from_numpy(rng.standard_normal((32, 3, size, size, 3), dtype=np.float32))
+    x = clip32.to(dev)
+    ms = {False: [], True: []}
+    for use_kernels in (False, True, True, False):
+        fwd = make_serving_forward(model, dev, torch.bfloat16, use_kernels=use_kernels)
+        torch.cuda.reset_peak_memory_stats()
+        t = cuda_ms(lambda: fwd(x), reps=3)
+        ms[use_kernels].append(t)
+        log(f"[baseline-fps] bf16 batch 32 {'kernel' if use_kernels else 'plain'} path: "
+            f"{t:.1f} ms/batch, {32e3 / t:.1f} frames/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    # #1's share of the kernel-path forward: its batch-32 instances timed alone
+    fwd = make_serving_forward(model, dev, torch.bfloat16, use_kernels=False)
+    with Capture() as cap:
+        fwd(clip32)
+    k_ms = p_ms = b_ms = 0.0
+    with torch.inference_mode():
+        for key, (args, count) in cap.instances.items():
+            flops, nbytes = work("swin_block", args)
+            k_ms += count * cuda_ms(lambda: swin_block.swin_block(*args), reps=5)
+            p_ms += count * cuda_ms(lambda: swin_block.swin_block_plain(*args), reps=5)
+            b_ms += count * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    del cap
+    fwd_ms = float(np.mean(ms[True]))
+    log(f"[baseline-time] swin_block: kernel {k_ms:.3f} ms ({100 * k_ms / fwd_ms:.1f}% of the "
+        f"{fwd_ms:.1f} ms kernel-path forward), plain {p_ms:.3f} ms, bound {b_ms:.3f} ms per "
+        f"bf16 batch-32 forward ({smi})")
+    flops = model_flops(model, x.to(torch.bfloat16))
+    log(flops_line("baseline", flops, fwd_ms, smi))
+    del model, fwd, x
+    torch.cuda.empty_cache()
+    return ok
+
+
+def baseline_training_phase(dev, smi, rng, all_kernels):
+    """Phase i.  Returns False on a failure."""
+    from mumpy_tpu_torch.train.optim import OptimConfig, Optimizer
+    from mumpy_tpu_torch.train.trainer import TrainState, train_step
+    from mumpy_tpu_torch.utils.serving import set_kernel_path
+
+    model = baseline_model(dev).train()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = synthetic_batch(rng, 2 * TRAIN_CLIPS, model.cfg.image_size)
+
+    def generator(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    ok = check_train_step(model, init, batch, generator, "blocks", tag="[baseline-step]")
+    counts = train_launches(model, init, batch, generator, all_kernels, "blocks")
+    good = counts == {**dict.fromkeys(counts, (0, 0)), **BASELINE_TRAIN_LAUNCHES}
+    log(f"[baseline-train] launches per train_step (forward, backward): {counts} "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    # SGD at the encoder's rate 1e-3 for every group: the flagship recipe's
+    # decoder rate 1e-2 makes the baseline's loss oscillate on one batch, on
+    # either path (PERF.md §6); the JAX package has no baseline recipe
+    optim = OptimConfig(lr=BASELINE_LR, lr_cnn=BASELINE_LR)
+    for dtype, dname in ((None, "f32"), (torch.bfloat16, "bf16")):
+        model.load_state_dict(init)
+        set_kernel_path(model, True)
+        state = TrainState(model, Optimizer(model.named_parameters(), optim, iter_max=100))
+        gen = generator(SEED + 3)
+        losses = [float(train_step(state, batch, gen, dtype)["total"]) for _ in range(4)]
+        falls = all(np.isfinite(losses)) and losses[-1] < losses[0]
+        ok &= falls
+        log(f"[baseline-train] {dname} losses over 4 steps on one batch (kernel path, SGD lr "
+            f"{BASELINE_LR:g}): "
+            f"{[round(v, 5) for v in losses]} {'falling' if falls else 'NOT FALLING'}")
+        for use_kernels in (False, True, True, False):
+            set_kernel_path(model, use_kernels)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: train_step(state, batch, gen, dtype), reps=3)
+            log(f"[baseline-train-time] {dname} {'kernel' if use_kernels else 'plain'} path: "
+                f"{ms:.1f} ms/step at {2 * TRAIN_CLIPS} clips, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    del model, state
+    torch.cuda.empty_cache()
+    return ok
+
+
+def configurations_phase(dev, smi, rng, kernels, all_kernels):
+    """Phase j at ``mid_config`` (the flagship's widths and depths at 64^2).
+    Returns False on a failure."""
+    import dataclasses
+
+    from mumpy_tpu_torch.configs import mid_config
+    from mumpy_tpu_torch.train.optim import OptimConfig, Optimizer
+    from mumpy_tpu_torch.train.trainer import TrainState, train_step
+    from mumpy_tpu_torch.utils.serving import make_serving_forward, set_kernel_path
+
+    base = mid_config()
+    size = base.image_size
+    clip2 = torch.from_numpy(rng.standard_normal((2, 3, size, size, 3), dtype=np.float32))
+    batch = synthetic_batch(rng, 2 * TRAIN_CLIPS, size)
+
+    def generator(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # dropout: eval unchanged; training runs no training kernel and learns
+    ok = True
+    rates = dataclasses.replace(base, drop_rate=CONFIG_RATE, attn_drop_rate=CONFIG_RATE)
+    m0, m1 = build_model(base, dev), build_model(rates, dev)
+    _, c0, l0 = serve_once(m0, dev, clip2, torch.float32, True, "blocks", kernels)
+    _, c1, l1 = serve_once(m1, dev, clip2, torch.float32, True, "blocks", kernels)
+    diff, scale = rel_err(l1, l0)
+    good = c0 == c1 and diff <= 1e-6 * scale and any(c0.values())
+    log(f"[config-dropout] eval at rates {CONFIG_RATE} vs 0: logits max diff {diff:.3g} "
+        f"(bit-identical {torch.equal(l0, l1)}), launches {c1} vs {c0} "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    del m0
+    m1.train()
+    init = {k: v.clone() for k, v in m1.state_dict().items()}
+    counts = train_launches(m1, init, batch, generator, all_kernels, "blocks")
+    good = not any(f or b for f, b in counts.values())
+    log(f"[config-dropout] launches per train_step at rates {CONFIG_RATE}: {counts} "
+        f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    m1.load_state_dict(init)
+    state = TrainState(m1, Optimizer(m1.named_parameters(), OptimConfig(), iter_max=100))
+    gen = generator(SEED + 3)
+    losses = [float(train_step(state, batch, gen, torch.bfloat16)["total"]) for _ in range(4)]
+    falls = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    ms = cuda_ms(lambda: train_step(state, batch, gen, torch.bfloat16), reps=2)
+    log(f"[config-dropout] bf16 losses over 4 steps: {[round(v, 5) for v in losses]} "
+        f"{'falling' if falls else 'NOT FALLING'}; {ms:.1f} ms/step ({smi})")
+    ok &= falls
+    del m1, state
+    torch.cuda.empty_cache()
+
+    # remat "dots" against "full" and none, plain path, phase 8's f32 rule
+    grads, peaks = {}, {}
+    for label, remat, policy, dtype in (("none f64", False, "full", torch.float64),
+                                        ("none", False, "full", None),
+                                        ("full", True, "full", None),
+                                        ("dots", True, "dots", None)):
+        model = build_model(dataclasses.replace(base, remat=remat, remat_policy=policy),
+                            dev).train()
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        grads[label] = step_grads(model, init, batch, generator, False, dtype, "blocks")[1]
+        peaks[label] = (torch.cuda.max_memory_allocated() - start) / 2**30
+        del model, init
+        torch.cuda.empty_cache()
+    ref = grads.pop("none f64")
+    rms_all = (sum(g.double().pow(2).sum() for g in ref.values())
+               / sum(g.numel() for g in ref.values())).sqrt().item()
+    errs = {label: {} for label in grads}
+    for k, g in ref.items():
+        own = g.double().norm().item()
+        own = max(own, rms_all * g.numel() ** 0.5) if own < ZERO_GRAD * rms_all * \
+            g.numel() ** 0.5 else own
+        for label in grads:
+            errs[label][k] = rel_l2(grads[label][k], g, own)
+    over = {label: [k for k, e in errs[label].items()
+                    if e > max(GRAD_TOL, 2 * errs["none"][k])] for label in ("full", "dots")}
+    good = not over["full"] and not over["dots"]
+    log(f"[config-remat] f32 plain-path gradients vs the f64 step without remat, rel L2 per "
+        f"tensor, max: none {max(errs['none'].values()):.3g}, full "
+        f"{max(errs['full'].values()):.3g}, dots {max(errs['dots'].values()):.3g}; over the "
+        f"bound: {over}; peak memory of the f32 step above what was held at its start: "
+        + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items() if k != "none f64")
+        + f" {'ok' if good else 'FAIL'} ({smi})")
+    ok &= good
+    del grads, ref
+
+    # the window cross-view attention
+    mw = build_model(dataclasses.replace(base, cva_kind="window"), dev)
+    _, cw, lw = serve_once(mw, dev, clip2, torch.float32, True, "blocks", kernels)
+    _, cwp, lwp = serve_once(mw, dev, clip2, torch.float32, False, "blocks", kernels)
+    err, scale = rel_err(lw, lwp)
+    err16 = {uk: rel_err(serve_once(mw, dev, clip2, torch.bfloat16, uk, "blocks",
+                                    kernels)[2], lwp)[0] for uk in (True, False)}
+    good = (cw == {**c0, "cva": 0} and not any(cwp.values()) and err <= LOGIT_TOL * scale
+            and err16[True] <= 2 * err16[False])
+    log(f"[config-window] launches per forward {cw} (deformable kind {c0}); f32 logits kernel "
+        f"vs plain max err {err:.3g} (scale {scale:.3g}); bf16 vs f32 kernel path "
+        f"{err16[True]:.3g}, plain path {err16[False]:.3g} {'ok' if good else 'FAIL'}")
+    ok &= good
+    mw.float()
+    one = make_serving_forward(mw, dev, torch.float32)(clip2)
+    split = make_serving_forward(mw, [dev, dev], torch.float32)
+    try:
+        two = split(clip2)
+    finally:
+        split.close()
+    diff = (two.to(dev) - one).abs().max().item()
+    good = diff <= SPLIT_TOL
+    log(f"[config-window] f32 probabilities, two replicas on cuda:0 vs one device: max diff "
+        f"{diff:.3g} (bound {SPLIT_TOL:g}) {'ok' if good else 'FAIL'}")
+    ok &= good
+    del mw, split
+    torch.cuda.empty_cache()
+    return ok
+
+
+
+def run_new_phases(phases, dev, smi, kernels, all_kernels) -> int:
+    """Phases h (the baseline's serving), i (its training) and j (the
+    configurations), those named in the string ``phases``; 1 at the first
+    failure, else 0."""
+    runs = {"h": ("[baseline]", lambda rng: baseline_serving_phase(dev, smi, rng, all_kernels)),
+            "i": ("[baseline-train]",
+                  lambda rng: baseline_training_phase(dev, smi, rng, all_kernels)),
+            "j": ("[config]",
+                  lambda rng: configurations_phase(dev, smi, rng, kernels, all_kernels))}
+    for seed, phase in enumerate("hij", start=SEED + 11):
+        if phase not in phases:
+            continue
+        t0 = time.perf_counter()
+        tag, run = runs[phase]
+        ok = run(np.random.default_rng(seed))
+        log(f"{tag} phase {phase}: {time.perf_counter() - t0:.1f} s")
+        if not ok:
+            log(f"{tag} FAILED")
+            return 1
+    return 0
+
+
 def ptxas_summary(build_log):
     """[(kernel, "N registers, S bytes spill stores, L bytes spill loads")]
     from the ``-Xptxas -v`` lines of the build, the kernel named by its
@@ -2220,6 +2545,59 @@ def ptxas_summary(build_log):
             out.append((name, f"{regs.group(1) if regs else '?'} registers, {spills}"))
             name, spills = None, ""
     return out
+
+
+def hold_instances(cap, errs, tag="[kernel]"):
+    """Phase 3's checks on every instance ``cap`` captured: each kernel
+    against its plain version in f32 and bf16 (largest error and branch RMS
+    error), and each planted fault caught; the largest f32 error of each
+    kernel into ``errs``.  Returns whether every check passed."""
+    ok = True
+    with torch.inference_mode():
+        for key, (args, count) in cap.instances.items():
+            name = key[0]
+            mod = cap.kernels[name]
+            kernel, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
+            n_act = 2 if name == "cva" else 1  # activations; cva's coordinates stay f32
+            acts, coords, ops = args[:n_act], args[n_act:-1], args[-1]
+            acts16, ops16 = [a.to(torch.bfloat16) for a in acts], cast_ops(ops, torch.bfloat16)
+            ref, got = plain(*args), kernel(*args)
+            # bf16: the kernel's own error, against the f32 plain version run
+            # on the same bf16-valued inputs
+            ref16 = plain(*(a.float() for a in acts16), *coords,
+                          cast_ops(ops16, torch.float32))
+            got16 = kernel(*acts16, *coords, ops16)
+            torch.cuda.synchronize()
+            x16 = acts16[0].float()
+            b32 = branch_error(name, acts[0], got, ref)
+            b16 = branch_error(name, x16, got16, ref16)
+            good = b32 <= F32_BRANCH_TOL and b16 <= BF16_BRANCH_TOL
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            g32 = got if isinstance(got, tuple) else (got,)
+            g16 = got16 if isinstance(got16, tuple) else (got16,)
+            e32 = e16 = 0.0
+            for r, a, b in zip(refs, g32, g16):
+                ea, s = rel_err(a, r)
+                eb, _ = rel_err(b, r)
+                good &= ea <= F32_TOL * s and eb <= BF16_TOL * s
+                e32, e16 = max(e32, ea / s), max(e16, eb / s)
+                errs[name] = max(errs[name], ea)
+            control = ""
+            ratio = acts[1].shape[0] // acts[0].shape[0] if name == "cva" else 1
+            for label, bad_ops, required in planted_faults(name, ops16, ratio):
+                bc = branch_error(name, x16, kernel(*acts16, *coords, bad_ops), ref16)
+                caught = bc > BF16_BRANCH_TOL
+                if required or key[3] == "seeded":
+                    good &= caught
+                    verdict = "caught" if caught else "NOT CAUGHT"
+                else:
+                    verdict = "reported only"
+                control += f"; control ({label}) {bc:.3g} {verdict}"
+            ok &= good
+            log(f"{tag} {name} {key[1]} P={key[2]} ({key[3]}) x{count}: max err / scale f32 "
+                f"{e32:.3g} bf16 {e16:.3g}; branch RMS err f32 {b32:.3g} bf16 {b16:.3g}"
+                f"{control} {'ok' if good else 'FAIL'}")
+    return ok
 
 
 def build_model(cfg, device):
@@ -2282,6 +2660,10 @@ def main() -> int:
         train_trace(cfg, dev, smi, rng)
         return 0
 
+    if "--phases" in sys.argv[1:]:  # some of phases h, i, j alone, e.g. --phases h,j
+        return run_new_phases(sys.argv[sys.argv.index("--phases") + 1], dev, smi, KERNELS,
+                              ALL_KERNELS)
+
     # ---- 3. every kernel instance vs its plain version ----
     model = build_model(cfg, dev)
     fwd_plain = make_serving_forward(model, dev, torch.float32, use_kernels=False)
@@ -2290,51 +2672,7 @@ def main() -> int:
     cap.add_earlier_instances()
     cap.add_seeded_cases(dev)
     errs = {k: 0.0 for k in EXPECTED_LAUNCHES}
-    ok = True
-    with torch.inference_mode():
-        for key, (args, count) in cap.instances.items():
-            name = key[0]
-            mod = cap.kernels[name]
-            kernel, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
-            n_act = 2 if name == "cva" else 1  # activations; cva's coordinates stay f32
-            acts, coords, ops = args[:n_act], args[n_act:-1], args[-1]
-            acts16, ops16 = [a.to(torch.bfloat16) for a in acts], cast_ops(ops, torch.bfloat16)
-            ref, got = plain(*args), kernel(*args)
-            # bf16: the kernel's own error, against the f32 plain version run
-            # on the same bf16-valued inputs
-            ref16 = plain(*(a.float() for a in acts16), *coords,
-                          cast_ops(ops16, torch.float32))
-            got16 = kernel(*acts16, *coords, ops16)
-            torch.cuda.synchronize()
-            x16 = acts16[0].float()
-            b32 = branch_error(name, acts[0], got, ref)
-            b16 = branch_error(name, x16, got16, ref16)
-            good = b32 <= F32_BRANCH_TOL and b16 <= BF16_BRANCH_TOL
-            refs = ref if isinstance(ref, tuple) else (ref,)
-            g32 = got if isinstance(got, tuple) else (got,)
-            g16 = got16 if isinstance(got16, tuple) else (got16,)
-            e32 = e16 = 0.0
-            for r, a, b in zip(refs, g32, g16):
-                ea, s = rel_err(a, r)
-                eb, _ = rel_err(b, r)
-                good &= ea <= F32_TOL * s and eb <= BF16_TOL * s
-                e32, e16 = max(e32, ea / s), max(e16, eb / s)
-                errs[name] = max(errs[name], ea)
-            control = ""
-            ratio = acts[1].shape[0] // acts[0].shape[0] if name == "cva" else 1
-            for label, bad_ops, required in planted_faults(name, ops16, ratio):
-                bc = branch_error(name, x16, kernel(*acts16, *coords, bad_ops), ref16)
-                caught = bc > BF16_BRANCH_TOL
-                if required or key[3] == "seeded":
-                    good &= caught
-                    verdict = "caught" if caught else "NOT CAUGHT"
-                else:
-                    verdict = "reported only"
-                control += f"; control ({label}) {bc:.3g} {verdict}"
-            ok &= good
-            log(f"[kernel] {name} {key[1]} P={key[2]} ({key[3]}) x{count}: max err / scale f32 "
-                f"{e32:.3g} bf16 {e16:.3g}; branch RMS err f32 {b32:.3g} bf16 {b16:.3g}"
-                f"{control} {'ok' if good else 'FAIL'}")
+    ok = hold_instances(cap, errs)
     if not ok:
         log("[kernel] FAILED: a kernel disagrees with its plain version, or a "
             "planted fault went unseen")
@@ -2370,6 +2708,7 @@ def main() -> int:
 
     # ---- 5. bf16 throughput at batch 32 ----
     clip32 = torch.from_numpy(rng.standard_normal((32, 3, 224, 224, 3), dtype=np.float32))
+    fps_ms = []
     for use_kernels in (False, True, True, False):
         fwd = make_serving_forward(model, dev, torch.bfloat16, use_kernels=use_kernels)
         x = clip32.to(dev)
@@ -2379,6 +2718,12 @@ def main() -> int:
         tag = "kernel" if use_kernels else "plain"
         log(f"[fps] bf16 batch 32 {tag} path: {ms:.1f} ms/batch, {32e3 / ms:.1f} frames/s, "
             f"peak {peak:.2f} GiB ({smi})")
+        if use_kernels:
+            fps_ms.append(ms)
+    from mumpy_tpu_torch.utils.profiling import model_flops
+
+    log(flops_line("flagship", model_flops(model, clip32.to(dev, torch.bfloat16)),
+                   float(np.mean(fps_ms)), smi))
 
     # ---- 6. per-kernel time per batch-32 bf16 forward ----
     fwd = make_serving_forward(model, dev, torch.bfloat16, use_kernels=False)
@@ -2447,6 +2792,10 @@ def main() -> int:
     # ---- g. the loader: 4 worker processes against none ----
     if not loader_phase(cfg, dev, smi, rng):
         log("[loader] FAILED")
+        return 1
+
+    # ---- h-j. the baseline's serving and training, the configurations ----
+    if run_new_phases("hij", dev, smi, KERNELS, ALL_KERNELS):
         return 1
 
     print(json.dumps({"kernels": [

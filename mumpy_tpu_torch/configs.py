@@ -1,8 +1,9 @@
 """Model configurations of the port: the fields of
 ``mumpy_tpu/configs/model_config.py`` that serving and training read, value
-for value, as frozen dataclasses.  The port has no scan options and one
-cross-view attention (the deformable one); dropout rates other than 0 are
-refused (the training kernels take drop-path only, as the JAX package's do).
+for value, as frozen dataclasses.  The port has no scan, so the JAX
+package's ``train_scan_unroll`` (a TPU scan option) has no counterpart;
+every other field is here.  Dropout rates above 0 turn off the training
+kernels that the JAX package turns off at them (``models/dropout.py``).
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ import dataclasses
 from typing import Sequence, Tuple
 
 __all__ = ["ViewConfig", "GlobalEncoderConfig", "MumpyConfig", "multiswin_config",
-           "tiny_config"]
+           "mid_config", "tiny_config", "CVA_KINDS", "REMAT_POLICIES"]
+
+CVA_KINDS = ("deformable", "window")
+REMAT_POLICIES = ("full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,14 +53,26 @@ class MumpyConfig:
     drop_rate: float = 0.0
     attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.2
+    # the cross-view attention: "deformable" (the published model) or
+    # "window" (softmax window cross-attention, ``models/deformable.py``)
+    cva_kind: str = "deformable"
     # recompute each plain-block pair in the backward (torch.utils.checkpoint),
-    # as the JAX package remats its scanned pair bodies; "full" only
+    # as the JAX package remats its scanned pair bodies: "full" recomputes
+    # everything, "dots" keeps the outputs of the matrix products without
+    # batch dims and recomputes the rest
     remat: bool = True
     remat_policy: str = "full"
     decoder_num_classes: int = 32
     decoder_dap_k: int = 2
     decoder_features: Tuple[int, ...] = (256, 256, 256, 256, 256)
     decoder_kernel_size: int = 7
+
+    def __post_init__(self):
+        if self.cva_kind not in CVA_KINDS:
+            raise ValueError(f"cva_kind must be one of {CVA_KINDS}, got {self.cva_kind!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                             f"got {self.remat_policy!r}")
 
     @property
     def stage_shapes(self) -> Sequence[int]:
@@ -90,6 +106,22 @@ def multiswin_config(image_size: int = 224, drop_path_rate: float = 0.2) -> Mump
     )
     return MumpyConfig(views=views, global_encoder=GlobalEncoderConfig(),
                        image_size=image_size, drop_path_rate=drop_path_rate)
+
+
+def mid_config(image_size: int = 64) -> MumpyConfig:
+    """The flagship's widths, depths and heads on a smaller grid: window 4
+    divides the 16/8/4/2 pyramid of 64^2; drop-path 0."""
+    res = _resolutions(image_size)
+    views = (
+        ViewConfig((96, 192, 384, 768), (4, 4, 3), (2, 2, 6, 2), (3, 6, 12, 24),
+                   768, 1, res, 1, window_size=4),
+        ViewConfig((96, 192, 384, 768), (4, 4, 2), (2, 2, 18, 2), (3, 6, 12, 24),
+                   1536, 1, res, 1, window_size=4),
+        ViewConfig((128, 256, 512, 1024), (4, 4, 1), (2, 2, 18, 2), (4, 8, 16, 32),
+                   3072, 3, res, 3, window_size=4),
+    )
+    return MumpyConfig(views=views, global_encoder=GlobalEncoderConfig(),
+                       image_size=image_size, drop_path_rate=0.0)
 
 
 def tiny_config(image_size: int = 32) -> MumpyConfig:

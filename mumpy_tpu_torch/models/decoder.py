@@ -94,10 +94,11 @@ class SEB(nn.Module):
 
 
 class ConvGNReLUUp(nn.Sequential):
-    """conv3x3 + GroupNorm(8) + ReLU + 2x bilinear (align_corners=True)."""
+    """conv3x3 + GroupNorm(``groups``: 8 in the flagship, 32 in the
+    baseline) + ReLU + 2x bilinear (align_corners=True)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
-        super().__init__(nn.Conv2d(in_ch, out_ch, 3, padding=1), nn.GroupNorm(8, out_ch))
+    def __init__(self, in_ch: int, out_ch: int, groups: int = 8):
+        super().__init__(nn.Conv2d(in_ch, out_ch, 3, padding=1), nn.GroupNorm(groups, out_ch))
 
     def forward(self, x):
         x = F.relu(conv(self[1], conv(self[0], x)))

@@ -40,7 +40,13 @@ parameters in eval and in train mode: every plain block one by one
 off there), the cross-view blocks' attention half through the same
 ``window_attend``, and only the window-attention core through a kernel.
 Training keeps the JAX package's remat of the scanned pair bodies on both
-paths of that set: each (shifted, plain) pair under ``torch.utils.checkpoint``.
+paths of that set: each (shifted, plain) pair under ``torch.utils.checkpoint``,
+whole (``remat_policy="full"``) or keeping its matrix products' outputs
+(``"dots"``).  Dropout (``drop_rate``, ``attn_drop_rate``; ``dropout.py``)
+turns the training kernels off where the JAX package's gates do
+(``swin.py``), and the plain blocks' pairs are then recomputed on both sets.
+``cva_kind="window"`` puts the window cross-attention in every cross-view
+block's CVA (``deformable.py``): no ``cva`` kernel then.
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs import MumpyConfig
 from ..ops.attn_ln import attn_ln, attn_ln_operands, attn_ln_plain
@@ -60,40 +67,66 @@ from ..ops.ln_mlp import ln_mlp, ln_mlp_plain
 from ..ops.ln_mlp_train import ln_mlp_train, ln_mlp_train_plain, ln_mlp_weights
 from ..ops.window import partition_tokens, unpartition_tokens
 from .deformable import CVAModule
+from .dropout import Drops
 from .swin import (KernelSite, Mlp, PatchMerging, SwinBlock, VitBlock, WindowAttention,
-                   as_shard, clamp_window, drop_path_keep, mlp_tail_operands, scale_rows,
-                   window_attend)
+                   as_shard, clamp_window, drop_path_keep, mlp_branch, mlp_tail_operands,
+                   scale_rows, window_attend)
 
-__all__ = ["PatchEmbed3D", "CrossSwinBlock", "ThreeViewStages",
-           "merge_views_along_channel_axis", "GlobalVitBody", "MumpyEncoder"]
+__all__ = ["patch_tokens", "PatchEmbed", "PatchEmbed3D", "CrossSwinBlock", "ThreeViewStages",
+           "dots_policy", "train_plain_blocks", "merge_views_along_channel_axis",
+           "GlobalVitBody", "MumpyEncoder"]
+
+
+def patch_tokens(clip: torch.Tensor, proj: nn.Conv3d, norm: nn.LayerNorm, patch) -> torch.Tensor:
+    """A Conv3d(kernel = stride = (t, p, p)) tokenizer and its LayerNorm, run
+    as patch extraction + one matmul (valid stride: frames beyond
+    ``(T // t) * t`` are dropped): clip (B, T, H, W, 3) -> (B, T' * h * w, C)."""
+    ph, pw, pt = patch
+    b, t, h, w, c = clip.shape
+    to = t // pt
+    x = clip[:, : to * pt].reshape(b, to, pt, h // ph, ph, w // pw, pw, c)
+    # flatten patch dims in the Conv3d weight order (c_in, t, ph, pw)
+    x = x.permute(0, 1, 3, 5, 7, 2, 4, 6).reshape(b, to * (h // ph) * (w // pw), -1)
+    x = x @ proj.weight.reshape(proj.weight.shape[0], -1).t() + proj.bias
+    return norm(x)
+
+
+def _conv3d(hidden: int, patch) -> nn.Conv3d:
+    ph, pw, pt = patch
+    return nn.Conv3d(3, hidden, (pt, ph, pw), stride=(pt, ph, pw))
+
+
+class PatchEmbed(nn.Module):
+    """One view's tokenizer, ``proj`` + ``norm`` (the single-view baseline's
+    ``patch_embed``), for ``hidden`` channels and ``patch`` = (ph, pw, pt)."""
+
+    def __init__(self, hidden: int, patch):
+        super().__init__()
+        self.patch = tuple(patch)
+        self.proj = _conv3d(hidden, patch)
+        self.norm = nn.LayerNorm(hidden, eps=1e-5)
+
+    def forward(self, clip: torch.Tensor) -> torch.Tensor:
+        return patch_tokens(clip, self.proj, self.norm, self.patch)
 
 
 class PatchEmbed3D(nn.Module):
-    """The three views' Conv3d(kernel = stride = (t, p, p)) tokenizers, run as
-    patch extraction + one matmul each (valid stride: frames beyond
-    ``(T // t) * t`` are dropped, so view 2 sees frames 0 and 1 only)."""
+    """The three views' tokenizers (``project{v}``, ``norm{v}``), one per
+    (hidden, patch) of ``views`` (so view 2, of temporal patch 2, sees frames
+    0 and 1 only)."""
 
-    def __init__(self, cfg: MumpyConfig):
+    def __init__(self, views):
         super().__init__()
         self.patches = []
-        for v, vc in enumerate(cfg.views, start=1):
-            ph, pw, pt = vc.patch_size
-            self.patches.append((ph, pw, pt))
-            setattr(self, f"project{v}", nn.Conv3d(3, vc.hidden_size[0], (pt, ph, pw),
-                                                   stride=(pt, ph, pw)))
-            setattr(self, f"norm{v}", nn.LayerNorm(vc.hidden_size[0], eps=1e-5))
+        for v, (hidden, patch) in enumerate(views, start=1):
+            self.patches.append(tuple(patch))
+            setattr(self, f"project{v}", _conv3d(hidden, patch))
+            setattr(self, f"norm{v}", nn.LayerNorm(hidden, eps=1e-5))
 
     def embed(self, v: int, clip: torch.Tensor) -> torch.Tensor:
         """clip (B, T, H, W, 3) -> view ``v``'s tokens (B, T' * h * w, C)."""
-        ph, pw, pt = self.patches[v - 1]
-        proj = getattr(self, f"project{v}")
-        b, t, h, w, c = clip.shape
-        to = t // pt
-        x = clip[:, : to * pt].reshape(b, to, pt, h // ph, ph, w // pw, pw, c)
-        # flatten patch dims in the Conv3d weight order (c_in, t, ph, pw)
-        x = x.permute(0, 1, 3, 5, 7, 2, 4, 6).reshape(b, to * (h // ph) * (w // pw), -1)
-        x = x @ proj.weight.reshape(proj.weight.shape[0], -1).t() + proj.bias
-        return getattr(self, f"norm{v}")(x)
+        return patch_tokens(clip, getattr(self, f"project{v}"), getattr(self, f"norm{v}"),
+                            self.patches[v - 1])
 
 
 class CrossSwinBlock(KernelSite):
@@ -106,12 +139,16 @@ class CrossSwinBlock(KernelSite):
     parameters (:meth:`train_forward`).  Reference quirks kept:
     the CVA output is added in window-major order without a window reverse,
     on top of the CVA's own residual (a double residual).  ``drop_path`` is
-    the block's stochastic-depth rate in training."""
+    the block's stochastic-depth rate in training, ``drop`` / ``attn_drop``
+    its dropout rates; ``cva_kind`` the kind of its CVA."""
 
     drop_path = 0.0
+    drop = attn_drop = 0.0
+    # dropout sites: attention probabilities and output, the CVA's two, MLP hidden and output
+    N_DROPS = 6
 
     def __init__(self, dim1, dim2, input_resolution, num_heads, window_size=7,
-                 mlp_ratio=4.0, last_view=False):
+                 mlp_ratio=4.0, last_view=False, cva_kind="deformable"):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
         self.window, _ = clamp_window(input_resolution, window_size, 0)
@@ -122,7 +159,7 @@ class CrossSwinBlock(KernelSite):
         self.mlp = Mlp(dim1, int(dim1 * mlp_ratio))
         if not last_view:
             self.pre = nn.Linear(dim2, dim1)
-            self.cva = CVAModule(dim1, num_heads, window=self.window)
+            self.cva = CVAModule(dim1, num_heads, window=self.window, kind=cva_kind)
 
     def build_ops(self):
         a = self.attn
@@ -160,7 +197,12 @@ class CrossSwinBlock(KernelSite):
         ``ln_mlp_train``; the ``"attention"`` set runs the JAX package's per-op
         branch, LayerNorm and :func:`window_attend` (its core through the
         ``window_attention`` kernel), and the tail's plain version, since the
-        JAX package runs the tail in XLA there."""
+        JAX package runs the tail in XLA there.  At a dropout rate above 0
+        (training) the attention half runs that per-op branch in both sets,
+        on the plain core in the ``"blocks"`` set (the JAX package's
+        ``attn_ln`` training kernel refuses dropout) and at ``attn_drop``
+        above 0 in both, and the tail by plain autograd at ``drop`` above 0;
+        the block's six sites drop as the JAX package's do."""
         h, w = self.input_resolution
         win = self.window
         b1, l1, c1 = x1.shape
@@ -168,9 +210,13 @@ class CrossSwinBlock(KernelSite):
         nw = (gh1 // win) * (w // win)
         rate, dev = (self.drop_path if self.training else 0.0), x1.device
         keep = drop_path_keep(b1, rate, generator, dev)
-        if self.kernel_set == "attention":
+        dropping = self.training and (self.drop > 0 or self.attn_drop > 0)
+        drops = Drops.draw(self.N_DROPS, dropping, generator, dev)
+        if self.kernel_set == "attention" or dropping:
             y = window_attend(self.attn, self.norm1(x1), (gh1, w), win, 0,
-                              self.attn.bias()[None], self.use_kernels)
+                              self.attn.bias()[None],
+                              self.use_kernels and self.kernel_set == "attention", None,
+                              drops, self.attn_drop, self.drop)
             out, x1i = y, x1 + scale_rows(y, keep)
             x1w = partition_tokens(x1i, gh1, w, win, 0)
         else:
@@ -184,10 +230,16 @@ class CrossSwinBlock(KernelSite):
             gh2 = (x2.shape[1] // (h * w)) * h
             x2w = self.pre(partition_tokens(x2, gh2, w, win, 0))
             cw = self.cva(x1w, x2w, drop_path_keep(b1 * nw, rate, generator, dev),
-                          as_shard(generator))
+                          as_shard(generator), drops.at(2), self.attn_drop)
             keep = drop_path_keep(b1, rate, generator, dev)
             x1i = x1i + keep.to(cw.dtype)[:, None, None] * cw.reshape(b1, l1, c1)
-        keep = drop_path_keep(b1, rate, generator, dev).repeat_interleave(l1)
+        keep = drop_path_keep(b1, rate, generator, dev)
+        if dropping and self.drop > 0:
+            y = mlp_branch(x1i, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                           self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+                           drops.at(4), self.drop, self.mlp)
+            return x1i + scale_rows(y, keep), out
+        keep = keep.repeat_interleave(l1)
         tail = ln_mlp_train if self.block_kernels else ln_mlp_train_plain
         x1o = tail(x1i.reshape(b1 * l1, c1), ln_mlp_weights(self.norm2, self.mlp), keep)
         return x1o.reshape(b1, l1, c1), out
@@ -224,10 +276,7 @@ class ThreeViewStages(nn.Module):
 
     def __init__(self, cfg: MumpyConfig):
         super().__init__()
-        if cfg.remat_policy != "full":
-            raise NotImplementedError(f"remat_policy {cfg.remat_policy!r}: the port "
-                                      "recomputes whole pairs ('full') only")
-        self.remat = cfg.remat
+        self.remat, self.remat_policy = cfg.remat, cfg.remat_policy
         vcfgs = cfg.views
         max_depths = vcfgs[2].depths
         dpr = np.linspace(0.0, cfg.drop_path_rate, sum(max_depths))
@@ -246,13 +295,15 @@ class ThreeViewStages(nn.Module):
                         dim2 = vcfgs[v].hidden_size[s] if v < 3 else None
                         blocks[v] = CrossSwinBlock(
                             vc.hidden_size[s], dim2, res, vc.num_heads[s],
-                            window_size=vc.window_size, last_view=v == 3)
+                            window_size=vc.window_size, last_view=v == 3,
+                            cva_kind=cfg.cva_kind)
                     else:
                         blocks[v] = SwinBlock(
                             vc.hidden_size[s], res, vc.num_heads[s],
                             window_size=vc.window_size, shift_size=shift if i % 2 else 0,
                             temporal_dim=vc.temporal_dim)
                     blocks[v].drop_path = float(dpr[base + i])
+                    blocks[v].drop, blocks[v].attn_drop = cfg.drop_rate, cfg.attn_drop_rate
                 groups.append(BlockGroup(blocks))
             for v in range(1, 4):
                 pair_plain_blocks([getattr(g, f"block{v}") for g in groups[1:]
@@ -277,7 +328,8 @@ class ThreeViewStages(nn.Module):
                 plain = [getattr(g, f"block{v + 1}") for g in stage.blocks[1:]
                          if hasattr(g, f"block{v + 1}")]
                 if self.training:
-                    x[v] = train_plain_blocks(plain, x[v], generator, self.remat)
+                    x[v] = train_plain_blocks(plain, x[v], generator, self.remat,
+                                              self.remat_policy)
                 else:
                     x[v] = run_plain_blocks(plain, x[v])
             stage_outputs.append(list(x))
@@ -314,40 +366,61 @@ def run_plain_blocks(blocks: List[SwinBlock], x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _pair_forward(first, second, x, ka0, km0, ka1, km1, *params):
+def _pair_forward(first, second, x, ka0, km0, ka1, km1, d0, d1, *params):
     """Two consecutive plain blocks on the parameters they are handed."""
     half = len(params) // 2
-    x = first.train_forward(x, ka0, km0, *params[:half])
-    return second.train_forward(x, ka1, km1, *params[half:])
+    x = first.train_forward(x, ka0, km0, *params[:half], drops=d0)
+    return second.train_forward(x, ka1, km1, *params[half:], drops=d1)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The remat policy ``"dots"`` (the JAX package's
+    ``dots_with_no_batch_dims_saveable``): keep the outputs of the matrix
+    products without batch dims (``aten.mm``, ``aten.addmm``: every Linear),
+    recompute the rest, the batched attention products among them."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(dots_policy)
 
 
 def train_plain_blocks(blocks: List[SwinBlock], x: torch.Tensor, generator,
-                       remat: bool) -> torch.Tensor:
+                       remat: bool, policy: str = "full") -> torch.Tensor:
     """One view's plain blocks 1..d-1 of a stage in training, as the JAX
     package's scanned stack runs them: (block i, block i+1) pairs, then a
     lone last block.  Each pair is recomputed in the backward when
-    ``remat``, except on the ``"blocks"`` set's kernel path, as the JAX
-    package drops the scan's remat for the stacks its block kernel owns
-    (``kernel_owns_memory``): the kernel's backward recomputes the block from
-    its input.  Keep factors are drawn before the checkpoint and the pair is
-    handed its parameters, so the recompute reads the tensors the forward
-    read (the bf16 casts of a mixed-precision step included)."""
+    ``remat``, whole (``policy`` ``"full"``) or all but its matrix products'
+    outputs (``"dots"``, :func:`dots_policy`), except where the
+    ``"blocks"`` set's kernel runs, as the JAX package drops the scan's
+    remat for the stacks its block kernel owns (``kernel_owns_memory``):
+    the kernel's backward recomputes the block from its input.  At a
+    dropout rate above 0 no block kernel runs, so the pairs are
+    recomputed.  Keep factors and dropout seeds are drawn before the
+    checkpoint and the pair is handed its parameters, so the recompute reads
+    the tensors the forward read (the bf16 casts of a mixed-precision step
+    included) and drops what it dropped."""
     b = x.shape[0]
     keeps = [(drop_path_keep(b, blk.drop_path, generator, x.device),
               drop_path_keep(b, blk.drop_path, generator, x.device)) for blk in blocks]
+    drops = [blk.draw_drops(generator, x.device) for blk in blocks]
     n_pairs = len(blocks) // 2
-    remat = remat and not (blocks and blocks[0].block_kernels)
+    remat = remat and not (blocks and blocks[0].block_kernels and not blocks[0].dropping)
+    extra = {"context_fn": _dots_context} if policy == "dots" else {}
     for i in range(n_pairs):
         first, second = blocks[2 * i], blocks[2 * i + 1]
-        args = (x, *keeps[2 * i], *keeps[2 * i + 1],
+        args = (x, *keeps[2 * i], *keeps[2 * i + 1], drops[2 * i], drops[2 * i + 1],
                 *first.train_params(), *second.train_params())
         if remat:
             x = checkpoint(_pair_forward, first, second, *args, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False, **extra)
         else:
             x = _pair_forward(first, second, *args)
-    for blk, keep in zip(blocks[2 * n_pairs:], keeps[2 * n_pairs:]):
-        x = blk.train_forward(x, *keep)
+    for blk, keep, d in zip(blocks[2 * n_pairs:], keeps[2 * n_pairs:], drops[2 * n_pairs:]):
+        x = blk.train_forward(x, *keep, drops=d)
     return x
 
 
@@ -359,6 +432,8 @@ class GlobalVitBody(nn.Module):
         ge = cfg.global_encoder
         self.blocks = nn.ModuleList(
             VitBlock(ge.hidden_size, ge.num_heads, ge.mlp_dim) for _ in range(ge.num_layers))
+        for blk in self.blocks:
+            blk.drop = cfg.drop_rate
         self.drop_path = [float(r) for r in
                           np.linspace(0.0, cfg.drop_path_rate, ge.num_layers)]
 
@@ -367,7 +442,8 @@ class GlobalVitBody(nn.Module):
             if self.training:  # one keep per (clip, token) row: see VitBlock.train_forward
                 r = x.shape[1]
                 x = blk.train_forward(x, drop_path_keep(r, rate, generator, x.device),
-                                      drop_path_keep(r, rate, generator, x.device))
+                                      drop_path_keep(r, rate, generator, x.device),
+                                      Drops.draw(blk.N_DROPS, blk.drop > 0, generator, x.device))
             else:
                 x = blk(x)
         return x
@@ -395,7 +471,7 @@ class MumpyEncoder(nn.Module):
     def __init__(self, cfg: MumpyConfig):
         super().__init__()
         self.cfg = cfg
-        self.tokenize = PatchEmbed3D(cfg)
+        self.tokenize = PatchEmbed3D([(vc.hidden_size[0], vc.patch_size) for vc in cfg.views])
         self.layers = ThreeViewStages(cfg)
         merged_c = sum(v.hidden_size[-1] for v in cfg.views)
         self.globalembedding = nn.Linear(merged_c, cfg.global_encoder.hidden_size)

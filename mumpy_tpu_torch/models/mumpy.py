@@ -19,13 +19,11 @@ class Mumpy(nn.Module):
     """Eval mode serves through the serving kernels (after
     ``utils.serving.prepare_for_inference``); train mode (``model.train()``)
     runs the training path on the live parameters, its drop-path keep
-    factors drawn from the ``generator`` given to :meth:`forward`."""
+    factors and dropout seeds drawn from the ``generator`` given to
+    :meth:`forward`."""
 
     def __init__(self, cfg: MumpyConfig):
         super().__init__()
-        if cfg.drop_rate or cfg.attn_drop_rate:
-            raise NotImplementedError("dropout rates other than 0: the training kernels "
-                                      "take drop-path only, as the JAX package's do")
         self.cfg = cfg
         self.encoder = MumpyEncoder(cfg)
         self.decoder = MumpyDecoder(cfg)

@@ -27,7 +27,17 @@ Each :class:`KernelSite` runs one of two kernel sets, chosen explicitly
 
 Stochastic depth is a per-sample keep factor drawn from an explicit
 ``torch.Generator`` (:func:`drop_path_keep`); a model that runs one part
-of a split batch takes a :class:`RowShard` in its place.
+of a split batch takes a :class:`RowShard` in its place.  Dropout
+(``drop``, ``attn_drop``; ``models/dropout.py``) sits at the JAX package's
+sites: the attention probabilities and the projection output of every
+window attention, the MLP's hidden after GELU and its output, and in the ViT
+its attention probabilities and projection output, all at ``drop`` there.
+At a rate above 0 the training path leaves exactly the kernels the JAX
+package's ``train_supported`` gates leave: a Swin block's ``swin_block_train``
+at ``drop`` or ``attn_drop`` above 0 (the block then runs op by op, as
+:meth:`SwinBlock.op_forward`), an MLP tail's ``ln_mlp_train`` at ``drop``
+above 0, and the per-op set's ``window_attention`` at ``attn_drop`` above 0.
+Eval mode has no dropout and runs the serving kernels as at rate 0.
 """
 
 from __future__ import annotations
@@ -47,10 +57,11 @@ from ..ops.swin_pair import shift_row_map, swin_pair, swin_pair_operands, swin_p
 from ..ops.vit3 import vit3, vit3_operands, vit3_plain
 from ..ops.window import partition_tokens, shifted_window_mask, unpartition_tokens
 from ..ops.window_attention import window_attention, window_attention_plain
+from .dropout import NO_DROPS, Drops
 
 __all__ = ["relative_position_index", "rel_pos_bias", "RowShard", "as_shard", "drop_path_keep",
-           "KERNEL_SETS", "KernelSite", "Mlp", "WindowAttention", "window_attend", "SwinBlock",
-           "PatchMerging", "VitBlock"]
+           "KERNEL_SETS", "KernelSite", "Mlp", "WindowAttention", "window_attend", "mlp_branch",
+           "SwinBlock", "PatchMerging", "VitBlock"]
 
 KERNEL_SETS = ("blocks", "attention")
 
@@ -197,28 +208,49 @@ class WindowAttention(nn.Module):
         """The live (w_qkv, b_qkv, w_proj, b_proj), torch layouts."""
         return self.qkv.weight, self.qkv.bias, self.proj.weight, self.proj.bias
 
-    def forward(self, x, mb, use_kernel: bool = True, params=None):
+    def forward(self, x, mb, use_kernel: bool = True, params=None, drops: Drops = NO_DROPS,
+                attn_drop: float = 0.0, proj_drop: float = 0.0):
         """Counterpart of the JAX package's ``WindowAttention`` on its per-op
         path, on windows ``x`` (B*nW, N, C) with the additive term ``mb``
         (P, H, N, N): the qkv Linear, the ``window_attention`` kernel (or,
         with ``use_kernel`` False, its plain version) on the packed qkv, the
         proj Linear; on ``params`` = (w_qkv, b_qkv, w_proj, b_proj), by
-        default the live ones."""
+        default the live ones.  ``drops`` sites 0 and 1 drop the (B*nW, H,
+        N, N) probabilities at ``attn_drop`` (on the plain version: the
+        kernel has no dropout) and the output at ``proj_drop``."""
         w_qkv, b_qkv, w_proj, b_proj = params or self.params()
         qkv = F.linear(x, w_qkv, b_qkv)
-        o = (window_attention if use_kernel else window_attention_plain)(qkv, mb, self.num_heads)
-        return F.linear(o, w_proj, b_proj)
+        if drops.seeds is not None and attn_drop > 0:
+            o = window_attention_plain(qkv, mb, self.num_heads,
+                                       lambda a: drops(0, a, attn_drop, self, "probs"))
+        else:
+            o = (window_attention if use_kernel else window_attention_plain)(
+                qkv, mb, self.num_heads)
+        return drops(1, F.linear(o, w_proj, b_proj), proj_drop, self, "out")
 
 
 def window_attend(attn: WindowAttention, x, grid_hw, window: int, shift: int, mb,
-                  use_kernel: bool, params=None):
+                  use_kernel: bool, params=None, drops: Drops = NO_DROPS,
+                  attn_drop: float = 0.0, proj_drop: float = 0.0):
     """Counterpart of the JAX package's ``window_attend``: ``attn`` on the
     (shifted) windows of image tokens (B, L, C) over the folded ``grid_hw``,
     taken from the ``roll(-shift)`` layout and put back; ``mb`` is the
     (P, H, N, N) mask+bias of that layout."""
     gh, gw = grid_hw
-    wins = attn(partition_tokens(x, gh, gw, window, shift), mb, use_kernel, params)
+    wins = attn(partition_tokens(x, gh, gw, window, shift), mb, use_kernel, params, drops,
+                attn_drop, proj_drop)
     return unpartition_tokens(wins, gh, gw, window, shift)
+
+
+def mlp_branch(x, ln_g, ln_b, w1, b1, w2, b2, drops: Drops = NO_DROPS, rate: float = 0.0,
+               mlp=None):
+    """``fc2(gelu(fc1(LN x)))`` on tokens (rows first), with ``drops`` sites
+    0 and 1 on the hidden after GELU and on the output (the JAX package's
+    ``Mlp``)."""
+    c = x.shape[-1]
+    h = F.gelu(F.linear(F.layer_norm(x, (c,), ln_g, ln_b, 1e-5), w1, b1))
+    y = F.linear(drops(0, h, rate, mlp, "act"), w2, b2)
+    return drops(1, y, rate, mlp, "out")
 
 
 def scale_rows(y, keep):
@@ -244,6 +276,8 @@ class SwinBlock(KernelSite):
 
     leads_pair = False
     drop_path = 0.0  # stochastic-depth rate in training, set by the encoder
+    drop = attn_drop = 0.0  # dropout rates in training, set by the encoder
+    N_DROPS = 4  # dropout sites: attention probabilities and output, MLP hidden and output
 
     def __init__(self, dim, input_resolution, num_heads, window_size=7, shift_size=0,
                  mlp_ratio=4.0, temporal_dim=1):
@@ -282,6 +316,16 @@ class SwinBlock(KernelSite):
                                              self.shift).to(mb.device)
         return ops
 
+    @property
+    def dropping(self) -> bool:
+        """Whether a dropout rate is above 0: the JAX package's block
+        training kernel refuses the block then, and it trains op by op."""
+        return self.drop > 0 or self.attn_drop > 0
+
+    def draw_drops(self, generator, device) -> Drops:
+        """The dropout seeds of one training forward (none at rates 0)."""
+        return Drops.draw(self.N_DROPS, self.dropping, generator, device)
+
     def train_params(self):
         """The live parameters the training forward reads, in a fixed order
         (so a recomputed pair reads the tensors of its forward): the 12 of
@@ -291,14 +335,15 @@ class SwinBlock(KernelSite):
                 a.proj.bias, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
                 m.fc2.weight, m.fc2.bias, a.relative_position_bias_table]
 
-    def train_forward(self, x, keep_attn, keep_mlp, *params):
+    def train_forward(self, x, keep_attn, keep_mlp, *params, drops: Drops = NO_DROPS):
         """Training: the block through the ``swin_block_train`` kernel (or its
         plain version) on ``params`` (default: its live parameters), on its
-        (rolled) windows; in the ``"attention"`` set :meth:`op_forward`.
+        (rolled) windows; in the ``"attention"`` set, or at a dropout rate
+        above 0 (``drops``, :meth:`draw_drops`), :meth:`op_forward`.
         ``keep_attn`` / ``keep_mlp`` (B,) are the two residual branches'
         per-sample keep factors, repeated over the sample's windows."""
-        if self.kernel_set == "attention":
-            return self.op_forward(x, keep_attn, keep_mlp, *params)
+        if self.kernel_set == "attention" or self.dropping:
+            return self.op_forward(x, keep_attn, keep_mlp, *params, drops=drops)
         *weights, table = params or self.train_params()
         gh, gw = self.grid()
         nw = (gh // self.window) * (gw // self.window)
@@ -308,23 +353,26 @@ class SwinBlock(KernelSite):
                   keep_attn.repeat_interleave(nw), keep_mlp.repeat_interleave(nw))
         return unpartition_tokens(wins, gh, gw, self.window, self.shift)
 
-    def op_forward(self, x, keep_attn=None, keep_mlp=None, *params):
+    def op_forward(self, x, keep_attn=None, keep_mlp=None, *params, drops: Drops = NO_DROPS):
         """The block op by op, the ``"attention"`` set (the JAX package's
-        ``SwinBlock`` with its fused branches off): norm1, the
-        (shifted-)window attention through ``window_attention`` with the
-        shift's mask+bias, the residual, norm2, the Mlp, the residual.  The
-        same code serves (eval mode, no keeps) and trains by autograd, on
-        ``params`` in :meth:`train_params` order (default: the live ones),
-        ``keep_attn`` / ``keep_mlp`` (B,) scaling the two residual
-        branches."""
+        ``SwinBlock`` with its fused branches off), and the training path at
+        a dropout rate above 0 (the JAX package's XLA path): norm1, the
+        (shifted-)window attention with the shift's mask+bias, its core
+        through ``window_attention`` in the ``"attention"`` set, the
+        residual, norm2, the Mlp, the residual.  The same code serves (eval
+        mode, no keeps) and trains by autograd, on ``params`` in
+        :meth:`train_params` order (default: the live ones), ``keep_attn`` /
+        ``keep_mlp`` (B,) scaling the two residual branches and ``drops``
+        dropping at the block's four sites."""
         n1g, n1b, wq, bq, wp, bp, n2g, n2b, w1, b1, w2, b2, table = \
             params or self.train_params()
         c = x.shape[-1]
         y = window_attend(self.attn, F.layer_norm(x, (c,), n1g, n1b, 1e-5), self.grid(),
-                          self.window, self.shift, self.mask_bias(table), self.use_kernels,
-                          (wq, bq, wp, bp))
+                          self.window, self.shift, self.mask_bias(table),
+                          self.use_kernels and self.kernel_set == "attention",
+                          (wq, bq, wp, bp), drops, self.attn_drop, self.drop)
         x = x + scale_rows(y, keep_attn)
-        y = F.linear(F.gelu(F.linear(F.layer_norm(x, (c,), n2g, n2b, 1e-5), w1, b1)), w2, b2)
+        y = mlp_branch(x, n2g, n2b, w1, b1, w2, b2, drops.at(2), self.drop, self.mlp)
         return x + scale_rows(y, keep_mlp)
 
     def forward(self, x):
@@ -376,6 +424,9 @@ class VitBlock(KernelSite):
     ViT attends over n = 3 time slices for each of its R = B*49 rows.  The
     whole layer runs through the ``vit3`` kernel."""
 
+    drop = 0.0  # the dropout rate in training, set by the encoder
+    N_DROPS = 4  # attention probabilities and output, MLP hidden and output
+
     def __init__(self, dim: int, num_heads: int, mlp_dim: int):
         super().__init__()
         self.num_heads = num_heads
@@ -397,25 +448,39 @@ class VitBlock(KernelSite):
             return self.train_forward(x, ones, ones)
         return (vit3 if self.use_kernels else vit3_plain)(x, self.kernel_ops())
 
-    def train_forward(self, x, keep_attn, keep_mlp):
+    def train_forward(self, x, keep_attn, keep_mlp, drops: Drops = NO_DROPS):
         """Training on time-major tokens (3, R, C).  The JAX package trains the
         ViT token-major, (R, 3, C), so drop-path draws one keep per (clip,
         token) row r, shared by its three time slices: ``keep_attn`` /
         ``keep_mlp`` are (R,).  The attention half runs by plain autograd (the
         JAX package has no training kernel for it), the tail through the
-        ``ln_mlp_train`` kernel on the 3R rows.  In the ``"attention"`` set
+        ``ln_mlp_train`` kernel on the 3R rows, or, at ``drop`` above 0, by
+        plain autograd with its dropout.  Dropout (``drops``, all four sites
+        at ``drop``) sees the token-major layout: the probabilities as
+        (R, 3, H, 3), the rest as (R, 3, width).  In the ``"attention"`` set
         the tail is plain too and this is also the eval forward (keeps of 1):
         the JAX package runs the whole layer in XLA there, so this is the one
         place where a plain version is on the card's path."""
         _, r, c = x.shape
         heads = self.num_heads
         hd = c // heads
+        rate = self.drop
         h = F.layer_norm(x, (c,), self.norm1.weight, self.norm1.bias, 1e-5)
         q, k, v = self.attn.qkv(h).reshape(3, r, 3, heads, hd).unbind(2)
         s = torch.einsum("irhd,jrhd->rhij", q.float() * hd**-0.5, k.float())
-        o = torch.einsum("rhij,jrhd->irhd", torch.softmax(s, dim=-1), v.float())
+        a = torch.softmax(s, dim=-1)
+        if drops.seeds is not None:  # (R, H, i, j) as the JAX package's (R, i, H, j)
+            a = drops(0, a.permute(0, 2, 1, 3), rate, self.attn, "probs").permute(0, 2, 1, 3)
+        o = torch.einsum("rhij,jrhd->irhd", a, v.float())
         y = self.attn.proj(o.reshape(3, r, c).to(x.dtype))
+        y = drops(1, y.transpose(0, 1), rate, self.attn, "out").transpose(0, 1)
         x = x + keep_attn.to(x.dtype)[None, :, None] * y
+        if drops.seeds is not None and rate > 0:  # the JAX package's Mlp, token-major
+            t = x.transpose(0, 1)
+            y = mlp_branch(t, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                           self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+                           drops.at(2), rate, self.mlp)
+            return (t + keep_mlp.to(x.dtype)[:, None, None] * y).transpose(0, 1)
         tail = ln_mlp_train if self.block_kernels else ln_mlp_train_plain
         out = tail(x.reshape(3 * r, c), ln_mlp_weights(self.norm2, self.mlp),
                    keep_mlp.repeat(3))  # time-major rows t * R + r take keep[r]

@@ -74,8 +74,10 @@ def sample_plain(x2, gy, gx, groups, ws):
     return s.reshape(r, n, c).to(x2.dtype)
 
 
-def cva_plain(x1, x2, gy, gx, ops):
-    """Plain PyTorch version of the same function."""
+def cva_plain(x1, x2, gy, gx, ops, drop=None):
+    """Plain PyTorch version of the same function.  ``drop``, when given, is
+    applied to the (R, H, N, N) probabilities (attention dropout in
+    training, ``models/dropout.py``; the kernel serves only)."""
     b1, n, c = x1.shape
     r = x2.shape[0]
     ratio = r // b1
@@ -87,6 +89,8 @@ def cva_plain(x1, x2, gy, gx, ops):
     s = torch.einsum("rqhd,rkhd->rhqk", q.reshape(r, n, heads, hd),
                      k.reshape(r, n, heads, hd)) * hd**-0.5
     a = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    if drop is not None:
+        a = drop(a)
     o = torch.einsum("rhqk,rkhd->rqhd", a, v.reshape(r, n, heads, hd)).reshape(r, n, c)
     return o.reshape(b1, ratio, n, c).sum(dim=1) @ ops["w_proj"]
 

@@ -61,10 +61,12 @@ def _check(qkv, mb, heads):
         raise ValueError(f"{r} windows are not a multiple of the mask period {mb.shape[0]}")
 
 
-def window_attention_plain(qkv, mb, heads):
+def window_attention_plain(qkv, mb, heads, drop=None):
     """Plain PyTorch version of the same function, differentiated by
     autograd: both products in the input dtype, the scores and the softmax
-    in f32, the probabilities cast to v's dtype before P.V."""
+    in f32, the probabilities cast to v's dtype before P.V.  ``drop``, when
+    given, is applied to the (R, H, N, N) probabilities (attention dropout in
+    training, ``models/dropout.py``; the kernel has none)."""
     r, n, c3 = qkv.shape
     c = c3 // 3
     hd = c // heads
@@ -73,6 +75,8 @@ def window_attention_plain(qkv, mb, heads):
     per = mb.shape[0]
     s = (s.reshape(r // per, per, heads, n, n) + mb.float()).reshape(r, heads, n, n)
     a = torch.softmax(s, dim=-1).to(v.dtype)
+    if drop is not None:
+        a = drop(a)
     return torch.einsum("rhqk,rkhd->rqhd", a, v).reshape(r, n, c)
 
 

@@ -15,6 +15,10 @@ undoes:
   their leading axis;
 * ``relative_position_index`` is computed, never read from a tree.
 
+:func:`from_jax_baseline_params` does the same for the single-view
+baseline (``mumpy_tpu/models/baseline.py``) and
+:class:`..models.baseline.BaselineModel`.
+
 :func:`random_state_dict` draws every parameter of a model from a seeded
 normal distribution (numpy), so the port and the JAX package can be fed the
 same non-trivial weights.  :func:`jax_init_state_dict` initialises a model
@@ -32,8 +36,8 @@ import torch
 
 from ..configs import MumpyConfig
 
-__all__ = ["from_jax_params", "random_state_dict", "jax_init_rule", "draw_init",
-           "jax_init_state_dict"]
+__all__ = ["from_jax_params", "from_jax_baseline_params", "random_state_dict",
+           "jax_init_rule", "draw_init", "jax_init_state_dict"]
 
 
 def _plain_block_slot(stage: int, view: int, i: int, depth: int):
@@ -56,11 +60,11 @@ def _leaf(name: str, torch_shape) -> str:
 def _block_path(rest: str):
     """A Swin / cross / ViT block's sub-key -> its JAX sub-path."""
     parts = rest.split(".")
-    if parts[0] == "cva":  # cva.crossattn.<...>
+    if parts[0] == "cva":  # cva.crossattn.<...>; the window kind's bias table sits there
         names = {"conv_offset.0": "offset_dwconv", "conv_offset.1.norm": "offset_norm",
                  "conv_offset.3": "offset_proj"}
         mod = ".".join(parts[2:-1])
-        return ("cva", "crossattn", names.get(mod, mod)), parts[-1]
+        return ("cva", "crossattn") + ((names.get(mod, mod),) if mod else ()), parts[-1]
     return tuple(parts[:-1]), parts[-1]
 
 
@@ -127,23 +131,22 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def from_jax_params(params: Dict, cfg: MumpyConfig) -> Dict[str, torch.Tensor]:
-    """``mumpy_tpu`` Mumpy params -> state_dict of ``Mumpy(cfg)``."""
-    from ..models.mumpy import Mumpy
+def _state_dict_from_tree(params: Dict, template: Dict, jax_path) -> Dict[str, torch.Tensor]:
+    """The state_dict of ``template``'s keys and shapes from the JAX tree
+    ``params``, key by key through ``jax_path(key)`` -> (JAX path prefix,
+    leaf, stack index or None); raises on a parameter missing on either
+    side."""
+    from ..models.swin import relative_position_index
 
     flat = {path: np.asarray(v) for path, v in _flatten(dict(params))}
-    with torch.device("meta"):
-        template = Mumpy(cfg).state_dict()
     out = {}
     used = set()
     for key, t in template.items():
         if key.endswith("relative_position_index"):
-            from ..models.swin import relative_position_index
-
             w = int(round(np.sqrt(t.shape[0])))
             out[key] = torch.from_numpy(relative_position_index(w, w).copy())
             continue
-        prefix, leaf, idx = _jax_path(key, cfg)
+        prefix, leaf, idx = jax_path(key)
         path = prefix + (_leaf(leaf, t.shape),)
         if path not in flat:
             raise KeyError(f"{key}: JAX parameter {'/'.join(path)} not found")
@@ -155,6 +158,45 @@ def from_jax_params(params: Dict, cfg: MumpyConfig) -> Dict[str, torch.Tensor]:
     if unused:
         raise KeyError(f"JAX parameters with no port counterpart: {sorted(unused)[:5]}")
     return out
+
+
+def from_jax_params(params: Dict, cfg: MumpyConfig) -> Dict[str, torch.Tensor]:
+    """``mumpy_tpu`` Mumpy params -> state_dict of ``Mumpy(cfg)`` (either CVA
+    kind)."""
+    from ..models.mumpy import Mumpy
+
+    with torch.device("meta"):
+        template = Mumpy(cfg).state_dict()
+    return _state_dict_from_tree(params, template, lambda key: _jax_path(key, cfg))
+
+
+def _baseline_path(key: str):
+    """Torch state_dict key of :class:`BaselineModel` -> (JAX path prefix,
+    leaf, None): ``encoder.patch_embed.{proj,norm}``,
+    ``encoder.layers.{s}.blocks.{i}`` <- ``encoder/stage{s}_block{i}``,
+    ``encoder.layers.{s}.downsample`` <- ``encoder/stage{s}_merge``,
+    ``encoder.norm``, ``decoder.decoder_{i}.{0,1}`` <- ``decoder/decoder_{i}/
+    {conv,gn}``, ``decoder.final_out``."""
+    *mods, leaf = key.split(".")
+    m = re.fullmatch(r"encoder\.layers\.(\d+)\.blocks\.(\d+)\.(.*)", ".".join(mods))
+    if m:
+        sub, _ = _block_path(m.group(3) + "." + leaf)
+        return ("encoder", f"stage{m.group(1)}_block{m.group(2)}") + sub, leaf, None
+    mod = ".".join(mods)
+    mod = re.sub(r"^encoder\.layers\.(\d+)\.downsample", r"encoder.stage\1_merge", mod)
+    mod = re.sub(r"^decoder\.decoder_(\d)\.0$", r"decoder.decoder_\1.conv", mod)
+    mod = re.sub(r"^decoder\.decoder_(\d)\.1$", r"decoder.decoder_\1.gn", mod)
+    return tuple(mod.split(".")), leaf, None
+
+
+def from_jax_baseline_params(params: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """``mumpy_tpu`` BaselineModel params (numpy) -> state_dict of
+    ``BaselineModel(cfg)``, with no parameter missing or left over."""
+    from ..models.baseline import BaselineModel
+
+    with torch.device("meta"):
+        template = BaselineModel(cfg).state_dict()
+    return _state_dict_from_tree(params, template, _baseline_path)
 
 
 def random_state_dict(model: torch.nn.Module, seed: int, std: float = 0.02,
@@ -194,8 +236,9 @@ def jax_init_rule(name: str, module: torch.nn.Module, shape) -> tuple:
     state_dict key) of ``module``, as ``("zeros",)``, ``("ones",)`` or
     ``("trunc", std)``: a normal of that std truncated at two stds.
 
-    * every bias, and the CVA's ``proj_out`` kernel (``deformable.py:113-115``,
-      so every CVA branch starts at 0): zeros;
+    * every bias, and the CVA's ``proj_out`` kernel (``deformable.py:113-115``)
+      or, of the window kind, ``proj`` kernel (``:270``), so every CVA branch
+      starts at 0: zeros;
     * LayerNorm and GroupNorm scales: ones;
     * the decoder's 2-D convolutions: flax's default ``lecun_normal``, a
       truncated normal of std 1 / sqrt(fan_in) after truncation (the
@@ -204,7 +247,8 @@ def jax_init_rule(name: str, module: torch.nn.Module, shape) -> tuple:
       ``truncated_normal(0.02)`` (``models/swin.py:208``, ``:316-320``).
     """
     leaf = name.rsplit(".", 1)[-1]
-    if leaf == "bias" or name.endswith("cva.crossattn.proj_out.weight"):
+    if leaf == "bias" or name.endswith(("cva.crossattn.proj_out.weight",
+                                        "cva.crossattn.proj.weight")):
         return ("zeros",)
     if isinstance(module, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
         return ("ones",)

@@ -20,7 +20,7 @@ from tests.test_weight_port import build_reference_state_dicts
 from torch_cases import one_torch_thread  # noqa: F401  (autouse)
 
 
-@pytest.mark.parametrize("name", ["multiswin_config", "tiny_config"])
+@pytest.mark.parametrize("name", ["multiswin_config", "mid_config", "tiny_config"])
 def test_port_config_matches_jax_config(name):
     """The port's configuration holds the JAX package's values, field by field,
     for every field the port has; the derived shapes agree too."""
