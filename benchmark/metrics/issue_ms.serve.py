@@ -1,0 +1,8 @@
+"""Host milliseconds from calling the serve entry to its return, before any
+synchronisation, averaged over every call of the window (host clock)."""
+
+
+def read(run):
+    if run.kind != "serve" or not run.issue_s:
+        return None
+    return 1e3 * sum(run.issue_s) / len(run.issue_s)
